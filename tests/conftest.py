@@ -32,6 +32,12 @@ import pytest  # noqa: E402
 from gsjax.data.cameras import Camera  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (inside the test) without one"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

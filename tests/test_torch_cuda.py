@@ -1,0 +1,175 @@
+"""The CUDA compositing kernel on the card, against its plain version.
+
+Imports neither JAX nor gsjax nor the shared conftest helpers, so it runs
+where only the port is installed:
+
+    python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_cuda.py
+
+Tests marked ``cuda`` skip (inside the test) without a CUDA device; the
+input checks run anywhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gsjax_torch.data.cameras import Camera
+from gsjax_torch.ops import RasterizeSettings, render
+from gsjax_torch.ops import cuda_composite as cc
+from gsjax_torch.ops.binning import build_tile_bins
+from gsjax_torch.ops.projection import num_tiles, preprocess
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _scene(n, seed, dense=False):
+    """Post-activation gaussians in front of an identity camera (numpy)."""
+    rng = np.random.default_rng(seed)
+    spread, z = (0.6, (3.0, 4.0)) if dense else (2.0, (4.0, 10.0))
+    means = np.stack([rng.uniform(-spread, spread, n), rng.uniform(-spread, spread, n),
+                      rng.uniform(*z, n)], 1)
+    scales = np.exp(rng.normal(-2.2, 0.4, (n, 3)))
+    quats = rng.normal(0, 1, (n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    opac = rng.uniform(0.6, 0.99, n) if dense else rng.uniform(0.2, 0.95, n)
+    shs = rng.normal(0, 0.15, (n, 16, 3))
+    shs[:, 0] = rng.uniform(-1.0, 1.5, (n, 3))
+    return [a.astype(np.float32) for a in (means, scales, quats, opac, shs)]
+
+
+def _camera(width, height, device):
+    return Camera(uid=0, image_name="t", R=np.eye(3), T=np.zeros(3), fov_x=0.8,
+                  fov_y=0.8 * height / width, width=width,
+                  height=height).to_render_camera(device)
+
+
+def _inputs(gs, width, height, device, max_pairs=1 << 15):
+    rc = _camera(width, height, device)
+    sp = preprocess(*(torch.from_numpy(g).to(device) for g in gs), rc, 3)
+    tx, ty = num_tiles(width, height)
+    bins = build_tile_bins(sp, tx, ty, max_pairs, max_tiles_per_gauss=16,
+                           expansion="compact")
+    attrs = cc.pack_gauss_attrs(sp.means2d, sp.conics, sp.colors, sp.opacities)
+    return bins.tile_start, bins.pair_gauss, attrs, tx, ty
+
+
+def assert_two_tier(got, want, name, tol=1e-4):
+    """The sequential recurrence (kernel) against the chunked cumulative
+    product (plain version): float reassociation, plus a pair on the 1/255
+    cut or the 1e-4 exit taken by one and not the other — at most 0.1% of
+    the values past ``tol``, none past 6e-3."""
+    d = (got.double().cpu() - want.double().cpu()).abs().numpy()
+    assert np.isfinite(d).all(), name
+    assert (d > tol).mean() <= 1e-3 and d.max() <= 6e-3, (name, d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+@pytest.mark.parametrize("size", [(64, 64), (70, 45)])
+def test_kernel_matches_plain_version(dense, size):
+    dev = _cuda()
+    args = _inputs(_scene(300, 4, dense), *size, dev)
+    before = cc.composite_infer.launches
+    kc, kT = cc.composite_infer(*args)
+    torch.cuda.synchronize()
+    assert cc.composite_infer.launches == before + 1
+    pc, pT = cc.composite_infer_plain(*args)
+    assert_two_tier(kc, pc, "tile_colors")
+    assert_two_tier(kT, pT, "tile_T")
+    if dense:
+        assert float(kT.min()) < 1e-3  # pixels saturate: the early exit runs
+
+
+@pytest.mark.cuda
+def test_kernel_empty_tiles_and_no_pairs():
+    dev = _cuda()
+    gs = _scene(50, 1)
+    gs[0][:, 2] *= -1  # everything behind the camera: every range is empty
+    kc, kT = cc.composite_infer(*_inputs(gs, 48, 40, dev))
+    torch.cuda.synchronize()
+    assert float(kc.abs().max()) == 0.0 and bool((kT == 1.0).all())
+
+
+@pytest.mark.cuda
+def test_render_on_cuda_matches_cpu():
+    dev = _cuda()
+    gs = _scene(300, 7)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    s = RasterizeSettings(max_pairs=1 << 15)
+    with torch.no_grad():
+        gpu = render(_camera(80, 48, dev), *(torch.from_numpy(g).to(dev) for g in gs), 3,
+                     bg.to(dev), s)  # auto -> kernel
+        cpu = render(_camera(80, 48, "cpu"), *map(torch.from_numpy, gs), 3, bg, s)
+    assert_two_tier(gpu["render"], cpu["render"], "render")
+    assert_two_tier(gpu["final_T"], cpu["final_T"], "final_T")
+    assert torch.equal(gpu["radii"].cpu(), cpu["radii"])
+    for k in ("num_dropped", "num_mt_capped", "num_tier_capped"):
+        assert int(gpu[k]) == int(cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_kernel_f16_overflow_matches_plain_version():
+    """A color above 65504 decodes as inf in the kernel (``__half2float``)
+    and makes exactly the pixels it blends into inf, as the plain version
+    does (see tests/test_torch_render.py::test_f16_color_overflow)."""
+    dev = _cuda()
+    gs = _scene(40, 0)
+    colors = torch.from_numpy(np.random.default_rng(0).uniform(0.1, 0.9, (40, 3))
+                              .astype(np.float32)).to(dev)
+    colors[0, 1] = 7e4
+    with torch.no_grad():
+        outs = {b: render(_camera(64, 64, dev), *(torch.from_numpy(g).to(dev) for g in gs),
+                          3, torch.zeros(3, device=dev), RasterizeSettings(backend=b),
+                          colors_precomp=colors)["render"]
+                for b in ("kernel", "scan")}
+    inf_k, inf_s = torch.isinf(outs["kernel"]), torch.isinf(outs["scan"])
+    assert bool(inf_k.any()) and torch.equal(inf_k, inf_s)
+    assert not bool(torch.isnan(outs["kernel"]).any())
+    fin = ~inf_s
+    assert_two_tier(outs["kernel"][fin], outs["scan"][fin], "finite pixels")
+
+
+@pytest.mark.cuda
+def test_kernel_path_refuses_gradients_on_cuda():
+    dev = _cuda()
+    gs = [torch.from_numpy(g).to(dev) for g in _scene(30, 2)]
+    gs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="training slice"):
+        render(_camera(32, 32, dev), *gs, 3, torch.zeros(3, device=dev),
+               RasterizeSettings())
+
+
+def test_wrapper_checks_inputs():
+    ts = torch.zeros(5, dtype=torch.int32)
+    pg = torch.zeros(3, dtype=torch.int32)
+    attrs = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="tile_start"):
+        cc.composite_infer(ts.long(), pg, attrs, 2, 2)
+    with pytest.raises(ValueError, match="tile_start"):
+        cc.composite_infer(ts[:4], pg, attrs, 2, 2)
+    with pytest.raises(ValueError, match="pair_gauss"):
+        cc.composite_infer(ts, pg.float(), attrs, 2, 2)
+    with pytest.raises(ValueError, match="gauss_attrs"):
+        cc.composite_infer(ts, pg, attrs[:, :7], 2, 2)
+    tc, tT = cc.composite_infer(ts, pg, attrs, 2, 2)  # empty ranges, on the CPU
+    assert tc.shape == (4, 256, 3) and bool((tT == 1).all()) and float(tc.abs().max()) == 0
+
+
+def test_gauss_attrs_layout():
+    """Rows are mean x/y, conic a/b/c, f16(r)<<16|f16(g), f16(b)<<16|f16(op), 0."""
+    m = torch.tensor([[1.5, -2.0]])
+    c = torch.tensor([[0.1, 0.2, 0.3]])
+    col = torch.tensor([[0.25, 0.5, 1.0]])
+    op = torch.tensor([0.75])
+    a = cc.pack_gauss_attrs(m, c, col, op)
+    assert a.shape == (1, 8) and a.dtype == torch.float32
+    bits = a.view(torch.int32)[0].tolist()
+    half = {0.25: 0x3400, 0.5: 0x3800, 1.0: 0x3C00, 0.75: 0x3A00}
+    assert bits[5] & 0xFFFFFFFF == (half[0.25] << 16) | half[0.5]
+    assert bits[6] & 0xFFFFFFFF == (half[1.0] << 16) | half[0.75]
+    assert torch.equal(a[0, :5], torch.cat([m[0], c[0]]))
+    assert bits[7] == 0

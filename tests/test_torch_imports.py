@@ -1,0 +1,79 @@
+"""gsjax_torch stands alone: it imports without JAX and without gsjax, and
+its entry points default to CUDA and refuse to run without it."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    import gsjax_torch
+
+    names = ["gsjax_torch"]
+    for info in pkgutil.walk_packages(gsjax_torch.__path__, "gsjax_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_imports_without_jax_or_gsjax():
+    mods = _port_modules()
+    assert {"gsjax_torch.ops.cuda_composite", "gsjax_torch.render",
+            "gsjax_torch.train.loop"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now raises
+        "sys.modules['gsjax'] = None\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gsjax')"
+        " and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card, and in a directory holding only the script, it exits
+    nonzero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    for cwd in (ROOT, str(tmp_path)):
+        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0
+        assert '"ok"' not in res.stdout
+
+
+def test_entry_points_default_to_cuda():
+    from gsjax_torch.data.cameras import Camera
+    from gsjax_torch.models.gaussians import create_empty
+    from gsjax_torch.render import main as render_main
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would succeed")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_empty(8)
+    cam = Camera(uid=0, image_name="c", R=torch.eye(3).numpy(), T=[0, 0, 0],
+                 fov_x=0.9, fov_y=0.9, width=32, height=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cam.to_render_camera()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_main(["-m", "/nonexistent-model"])
+    # the CPU works when asked for
+    assert create_empty(8, device="cpu").capacity == 8
