@@ -101,6 +101,23 @@ class RenderCamera:
         return self.height / (2.0 * self.tan_fov_y)
 
 
+def stack_render_cameras(cams, device="cuda"):
+    """Same-resolution cameras as one camera batch for the train step — a
+    list of :class:`RenderCamera` on ``device`` (gsjax stacks them into
+    one batched pytree for in-jit indexing; the port indexes a list)."""
+    rcs = [c.to_render_camera(device) if isinstance(c, Camera) else c for c in cams]
+    w, h = rcs[0].width, rcs[0].height
+    if any(rc.width != w or rc.height != h for rc in rcs):
+        raise ValueError("stack_render_cameras requires uniform resolution")
+    return rcs
+
+
+def index_render_camera(batch, i) -> RenderCamera:
+    """Select camera ``i`` (an int or a 0-d integer tensor) from a batch of
+    :func:`stack_render_cameras`."""
+    return batch[int(i)]
+
+
 def lookat_camera(eye, target, up, fov_x, width, height,
                   uid=0, name="lookat") -> Camera:
     """Free camera from eye/target/up (world coordinates, any up axis).

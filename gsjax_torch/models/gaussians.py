@@ -22,12 +22,13 @@ import torch
 
 from gsjax_torch.data.ply import read_ply, write_ply
 from gsjax_torch.utils.math import safe_normalize
-from gsjax_torch.utils.sh import num_sh_coeffs
+from gsjax_torch.utils.sh import num_sh_coeffs, rgb_to_sh
 from gsjax_torch.utils.system import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
 PARAM_KEYS = ("xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")
+INIT_OPACITY = 0.1  # reference: scene/gaussian_model.py:139
 
 
 @dataclasses.dataclass
@@ -50,6 +51,10 @@ class GaussianState:
     @property
     def device(self) -> torch.device:
         return self.params["xyz"].device
+
+    @property
+    def num_active(self) -> torch.Tensor:
+        return self.active.sum().to(torch.int32)
 
 
 def activated_params(p: Params):
@@ -98,6 +103,71 @@ def create_empty(capacity: int, max_sh_degree: int = 3, spatial_lr_scale=1.0,
 
 def round_capacity(n: int, multiple: int = 4096) -> int:
     return max(multiple, int(math.ceil(n / multiple)) * multiple)
+
+
+def knn_mean_sq_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
+    """Mean squared distance of each point to its k nearest neighbors.
+
+    Host-side replacement for the reference's ``simple_knn._C.distCUDA2``
+    CUDA kernel (reference: scene/gaussian_model.py:134): exact kNN with
+    scipy's KD-tree, the search gsjax falls back to. Runs once at init."""
+    from scipy.spatial import cKDTree
+
+    pts = np.asarray(points, dtype=np.float32)
+    d, _ = cKDTree(pts).query(pts, k=k + 1, workers=-1)  # includes self
+    return (d[:, 1:] ** 2).mean(axis=1).astype(np.float32)
+
+
+def create_from_pcd(points, colors, spatial_lr_scale: float, max_sh_degree: int = 3,
+                    capacity: int | None = None, device="cuda") -> GaussianState:
+    """Initialize one Gaussian per SfM point.
+
+    Same init as gsjax and the reference (scene/gaussian_model.py:124-147):
+    SH DC from RGB, isotropic log-scale from sqrt(mean 3-NN squared
+    distance) clamped at 1e-7, identity rotations, opacity 0.1."""
+    points = np.asarray(points, np.float32)
+    colors = np.asarray(colors, np.float32)
+    n = points.shape[0]
+    capacity = capacity or round_capacity(int(n * 1.5))
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < number of points {n}")
+
+    dist2 = np.maximum(knn_mean_sq_dist(points), 1e-7)
+    log_scales = np.repeat(np.log(np.sqrt(dist2))[:, None], 3, axis=1)
+
+    state = create_empty(capacity, max_sh_degree, spatial_lr_scale, device=device)
+    p = state.params
+    dev = state.device
+    p["xyz"][:n] = torch.from_numpy(points).to(dev)
+    p["features_dc"][:n, 0] = rgb_to_sh(torch.from_numpy(colors)).to(dev)
+    p["scaling"][:n] = torch.from_numpy(log_scales.astype(np.float32)).to(dev)
+    init = torch.tensor(INIT_OPACITY, dtype=torch.float32)
+    p["opacity"][:n] = float(torch.log(init / (1.0 - init)))
+    state.active[:n] = True
+    return state
+
+
+def grow_capacity(state: GaussianState, new_capacity: int) -> GaussianState:
+    """Re-bucket into a larger buffer: every per-Gaussian tensor is
+    zero-padded to ``new_capacity`` (fresh tensors; an optimizer over the
+    old ones is carried over by ``train.optim.grow_optimizer``)."""
+    if new_capacity < state.capacity:
+        raise ValueError("can only grow")
+
+    def pad(a):
+        a = a.detach()
+        out = torch.zeros((new_capacity,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        out[: a.shape[0]] = a
+        return out
+
+    return dataclasses.replace(
+        state,
+        params={k: pad(v) for k, v in state.params.items()},
+        active=pad(state.active),
+        max_radii2d=pad(state.max_radii2d),
+        xyz_grad_accum=pad(state.xyz_grad_accum),
+        denom=pad(state.denom),
+    )
 
 
 # --------------------------------------------------------------------------

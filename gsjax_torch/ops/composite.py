@@ -43,10 +43,12 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
     """``n_rounds`` chunks of ``chunk`` pairs per tile, front to back.
 
     Returns ``(tile_colors (T, 256, 3), tile_T (T, 256), done (T, 256)
-    bool, n_eval (T, 256) int64)``; ``n_eval`` counts the pairs a
-    sequential per-pixel loop evaluates (every in-range pair up to and
-    including the one that trips the T < 1e-4 exit) — the work a kernel
-    that walks the same pairs needs."""
+    bool, n_eval (T, 256) int64, n_contrib (T, 256) int32)``; ``n_eval``
+    counts the pairs a sequential per-pixel loop evaluates (every in-range
+    pair up to and including the one that trips the T < 1e-4 exit) — the
+    work a kernel that walks the same pairs needs; ``n_contrib`` is the
+    local index + 1 of the last pair the pixel blended (``alpha_eff > 0``),
+    0 if none — the bound of the backward's replay."""
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)  # (T, 256, 2)
@@ -60,6 +62,7 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
     T_carry = torch.ones(shape, dtype=torch.float32, device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
     n_eval = torch.zeros(shape, dtype=torch.int64, device=dev)
+    n_contrib = torch.zeros(shape, dtype=torch.int64, device=dev)
     acc = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
     for k in range(n_rounds if n_pairs else 0):
         off = k * chunk + k_local
@@ -98,10 +101,12 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
         # whole chunk (gsjax's XLA path does)
         wc = w[..., None] * col[:, None, :, :]
         acc += torch.where(w[..., None] > 0, wc, torch.zeros_like(wc)).sum(-2)
+        last = torch.where(alpha_eff > 0, off + 1, 0).amax(-1)
+        n_contrib = torch.maximum(n_contrib, last)
 
         T_carry = T_carry * cp_eff[..., -1]
         done = done_inc[..., -1]
-    return acc, T_carry, done, n_eval
+    return acc, T_carry, done, n_eval, n_contrib.to(torch.int32)
 
 
 def composite_tiles(
@@ -124,7 +129,7 @@ def composite_tiles(
     loses its tail — ``num_tile_capped`` counts those lost pairs on tiles
     where some pixel was still accumulating (the kernel has no such cap)."""
     n_rounds = max(max_splats_per_tile // chunk, 1)
-    tile_colors, tile_T, done, _ = scan_tiles(
+    tile_colors, tile_T, done, _, _ = scan_tiles(
         bins_pair_gauss, tile_start, means2d, conics, colors, opacities,
         tiles_x, tiles_y, n_rounds, chunk,
     )

@@ -1,28 +1,42 @@
-"""CUDA inference compositing kernel, its plain version, and their inputs.
+"""CUDA compositing kernels, their plain versions, and their inputs.
 
-Counterpart of ``gsjax.ops.pallas_composite`` for the render-only path.
-It holds:
+Counterpart of ``gsjax.ops.pallas_composite``. It holds:
 
 - :func:`pack_f16_pair` and :func:`pack_gauss_attrs`, the per-gaussian
   half of gsjax's ``pack_pair_attrs``: an (N, 8) float32 table with colors
-  and opacity as packed f16 words. The kernel gathers its rows through
-  ``pair_gauss`` itself, so the (P, 8) pair table gsjax builds is never
-  materialised.
-- :func:`composite_infer`, the wrapper of the hand-written CUDA kernel in
-  ``gsjax_torch/csrc/composite_infer.cu`` (which replaces gsjax's Pallas
-  ``_composite_infer_kernel``), with its launch counter
-  ``composite_infer.launches``.
-- :func:`composite_infer_plain`, the plain PyTorch version with the same
-  inputs, outputs and semantics: gsjax's chunked scan
-  (:func:`gsjax_torch.ops.composite.scan_tiles`) with no
-  ``max_splats_per_tile`` cap — its number of rounds comes from the
-  longest tile in the data, as the kernel walks every pair.
-- :func:`load_library`, which builds the kernel with ``nvcc`` for
-  ``sm_90a`` at first use into ``build/gsjax_torch/`` and loads it with
-  ``ctypes``.
+  and opacity as packed f16 words. The kernels gather their rows through
+  ``pair_gauss`` themselves, so the (P, 8) pair table gsjax builds is
+  never materialised.
+- Three wrappers of hand-written CUDA kernels in ``gsjax_torch/csrc/``,
+  each with a launch counter (``fn.launches``) and a plain PyTorch version
+  with the same inputs, outputs and semantics:
 
-The wrapper takes the plain version only for tensors on the CPU. For CUDA
+  ========================  ==========================  ==============================
+  wrapper                   kernel source               replaces (gsjax Pallas)
+  ========================  ==========================  ==============================
+  :func:`composite_infer`   ``composite_infer.cu``      ``_composite_infer_kernel``
+  :func:`composite_fwd`     ``composite_fwd.cu``        ``_composite_kernel``
+  :func:`composite_bwd`     ``composite_bwd.cu``        ``_composite_bwd_kernel``
+  ========================  ==========================  ==============================
+
+- :func:`reduce_pair_grads`, plain torch: per-pair gradients summed to
+  per-gaussian ones in a fixed order (the XLA reduction of gsjax's
+  ``composite_pallas_grads``), and :func:`composite_grads`, the two
+  together.
+- :class:`CompositeFunction` / :func:`composite`, the differentiable
+  compositor (gsjax's ``_composite_vjp``): ``composite_fwd`` forward,
+  ``composite_bwd`` plus the reduction backward.
+- :func:`load_library`, which builds each kernel with ``nvcc`` for
+  ``sm_90a`` at first use into ``build/gsjax_torch/`` (one ``nvcc`` per
+  source, all started together) and loads them with ``ctypes``.
+
+A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
+
+Per-pair gradients are computed and reduced in float32 whatever
+``RasterizeSettings.grad_dtype`` and ``grad_reduce`` say: those are TPU
+bandwidth knobs of gsjax (bf16 grad tables, sort- or gather-based
+reduction) with no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,21 +46,30 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 import torch
 
-from gsjax_torch.ops.composite import scan_tiles
+from gsjax_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, _tile_pixel_coords, scan_tiles
 from gsjax_torch.ops.projection import TILE
 
 PIX = TILE * TILE
 ATTR_W = 8  # float32 words per gaussian row
-PLAIN_CHUNK = 32  # pairs per round of the plain version's scan
+GRAD_W = 9  # per-pair gradients: mean x/y, conic a/b/c, opacity, r/g/b
+PLAIN_CHUNK = 32  # pairs per round of the plain versions' scans
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_REPO_ROOT, "gsjax_torch", "csrc")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gsjax_torch")
-LIB_NAME = "libgsjax_torch_kernels.so"
-SOURCES = ("composite_infer.cu",)
+# source -> (exported function, its ctypes argument types); one shared
+# library per source
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SOURCES = {
+    "composite_infer.cu": ("gsjax_composite_infer", [_P] * 5 + [_I] * 2 + [_P]),
+    "composite_fwd.cu": ("gsjax_composite_fwd", [_P] * 6 + [_I] * 2 + [_P]),
+    "composite_bwd.cu": ("gsjax_composite_bwd", [_P] * 8 + [_I] * 2 + [_P]),
+}
+HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -66,40 +89,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build_library(verbose: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into ``build/gsjax_torch/libgsjax_torch_kernels.so``
-    unless an up-to-date library is there. Returns the library path."""
-    out = os.path.join(BUILD_DIR, LIB_NAME)
-    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    if os.path.exists(out) and os.path.getmtime(out) >= max(
-        os.path.getmtime(s) for s in srcs
-    ):
-        return out
+def _lib_path(source: str) -> str:
+    return os.path.join(BUILD_DIR, f"libgsjax_torch_{source[:-3]}.so")
+
+
+def build_library(verbose: bool = False) -> dict:
+    """Compile each ``csrc/*.cu`` into ``build/gsjax_torch/libgsjax_torch_<name>.so``
+    unless an up-to-date library is there; the ``nvcc`` processes run side
+    by side. Returns ``{source: library path}``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    return out
+    newest_header = max(os.path.getmtime(os.path.join(CSRC_DIR, h)) for h in HEADERS)
+    jobs = {}
+    for src in SOURCES:
+        out = _lib_path(src)
+        path = os.path.join(CSRC_DIR, src)
+        if os.path.exists(out) and os.path.getmtime(out) >= max(
+                os.path.getmtime(path), newest_header):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, path]
+        jobs[src] = (cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (cmd, tmp, out, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
+        if verbose:
+            print(f"{src}:\n{log}", flush=True)
+        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {src: _lib_path(src) for src in SOURCES}
 
 
-def load_library(verbose: bool = False) -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' shared library."""
+def load_library(verbose: bool = False) -> types.SimpleNamespace:
+    """Build (at first use) and load the kernels; returns a namespace of
+    their ctypes functions, by exported name."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_library(verbose))
-            fn = lib.gsjax_composite_infer
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
+            fns = {}
+            for src, path in build_library(verbose).items():
+                name, argtypes = SOURCES[src]
+                fn = getattr(ctypes.CDLL(path), name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 
@@ -120,7 +159,7 @@ def pack_gauss_attrs(means2d, conics, colors, opacities):
     """Per-gaussian (N, 8) float32 rows: mean x/y, conic a/b/c,
     f16(r)<<16|f16(g), f16(b)<<16|f16(opacity), 0 — the per-gaussian half
     of gsjax's ``pack_pair_attrs`` (its last row carries the pair slot,
-    which the inference kernel never reads)."""
+    which the kernels never read)."""
     return torch.cat(
         [
             means2d.to(torch.float32),
@@ -157,21 +196,58 @@ def _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y):
         raise ValueError(f"inputs on several devices: {devs}")
 
 
-def composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x: int,
-                          tiles_y: int, return_evals: bool = False):
-    """Plain PyTorch version of the kernel: same inputs, same outputs
-    ``(tile_colors (T, 256, 3), tile_T (T, 256))``, same semantics, up to
-    float reassociation (the scan's cumulative product against the
-    kernel's sequential one). With ``return_evals`` it also returns the
-    (T, 256) count of (pair, pixel) evaluations the kernel's walk needs."""
-    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+def _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib):
+    want = {"d_tile_colors": (d_tile_colors, torch.float32, (num_tiles, PIX, 3)),
+            "d_tile_T": (d_tile_T, torch.float32, (num_tiles, PIX)),
+            "final_T": (final_T, torch.float32, (num_tiles, PIX)),
+            "n_contrib": (n_contrib, torch.int32, (num_tiles, PIX))}
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must be {dtype} {shape} on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _plain_scan(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y):
+    """gsjax's chunked scan with no ``max_splats_per_tile`` cap — its
+    number of rounds comes from the longest tile in the data, as the
+    kernels walk every pair."""
     num_tiles = tiles_x * tiles_y
     longest = int((tile_start[1:] - tile_start[:num_tiles]).max()) if num_tiles else 0
     means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
-    tile_colors, tile_T, _, n_eval = scan_tiles(
+    return scan_tiles(
         pair_gauss, tile_start, means2d, conics, colors, opacities,
         tiles_x, tiles_y, -(-longest // PLAIN_CHUNK), PLAIN_CHUNK,
     )
+
+
+def _cuda_device(name, dev):
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name} runs on CUDA or CPU tensors, not {dev}")
+
+
+def _launch(name, fn, *args):
+    """Call a kernel's C entry on the current stream; raise on a launch error."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# --------------------------------------------------------------------------
+# composite_infer — the render path's forward (no gradient bookkeeping)
+# --------------------------------------------------------------------------
+
+
+def composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x: int,
+                          tiles_y: int, return_evals: bool = False):
+    """Plain PyTorch version of the inference kernel: same inputs, same
+    outputs ``(tile_colors (T, 256, 3), tile_T (T, 256))``, same
+    semantics, up to float reassociation (the scan's cumulative product
+    against the kernel's sequential one). With ``return_evals`` it also
+    returns the (T, 256) count of (pair, pixel) evaluations the kernel's
+    walk needs."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    tile_colors, tile_T, _, n_eval, _ = _plain_scan(
+        tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     if return_evals:
         return tile_colors, tile_T, n_eval
     return tile_colors, tile_T
@@ -190,25 +266,248 @@ def composite_infer(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: 
     dev = gauss_attrs.device
     if dev.type == "cpu":
         return composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    if dev.type != "cuda":
-        raise RuntimeError(f"composite_infer runs on CUDA or CPU tensors, not {dev}")
+    _cuda_device("composite_infer", dev)
     num_tiles = tiles_x * tiles_y
-    tile_start = tile_start.contiguous()
-    pair_gauss = pair_gauss.contiguous()
-    gauss_attrs = gauss_attrs.contiguous()
+    tile_start, pair_gauss, gauss_attrs = (
+        x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs))
     tile_colors = torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev)
     tile_T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
-    lib = load_library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gsjax_composite_infer(
-            tile_start.data_ptr(), pair_gauss.data_ptr(), gauss_attrs.data_ptr(),
-            tile_colors.data_ptr(), tile_T.data_ptr(), num_tiles, tiles_x, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"composite_infer launch failed: CUDA error {err}")
+        _launch("composite_infer", load_library().gsjax_composite_infer,
+                tile_start.data_ptr(), pair_gauss.data_ptr(), gauss_attrs.data_ptr(),
+                tile_colors.data_ptr(), tile_T.data_ptr(), num_tiles, tiles_x)
     composite_infer.launches += 1
     return tile_colors, tile_T
 
 
 composite_infer.launches = 0
+
+
+# --------------------------------------------------------------------------
+# composite_fwd — the training forward (records n_contrib)
+# --------------------------------------------------------------------------
+
+
+def composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
+    """Plain PyTorch version of the training forward kernel: the uncapped
+    scan, returning ``(tile_colors (T, 256, 3), tile_T (T, 256),
+    n_contrib (T, 256) int32)``."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    tile_colors, tile_T, _, _, n_contrib = _plain_scan(
+        tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    return tile_colors, tile_T, n_contrib
+
+
+def composite_fwd(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
+    """:func:`composite_infer` plus ``n_contrib`` (T, 256) int32, the local
+    index + 1 of the last pair each pixel blended (0 if none) — what the
+    backward replays. Returns ``(tile_colors, tile_T, n_contrib)``. CUDA
+    tensors launch the kernel (counted in ``composite_fwd.launches``); CPU
+    tensors take :func:`composite_fwd_plain`; anything else raises."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    dev = gauss_attrs.device
+    if dev.type == "cpu":
+        return composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    _cuda_device("composite_fwd", dev)
+    num_tiles = tiles_x * tiles_y
+    tile_start, pair_gauss, gauss_attrs = (
+        x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs))
+    tile_colors = torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev)
+    tile_T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("composite_fwd", load_library().gsjax_composite_fwd,
+                tile_start.data_ptr(), pair_gauss.data_ptr(), gauss_attrs.data_ptr(),
+                tile_colors.data_ptr(), tile_T.data_ptr(), n_contrib.data_ptr(),
+                num_tiles, tiles_x)
+    composite_fwd.launches += 1
+    return tile_colors, tile_T, n_contrib
+
+
+composite_fwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# composite_bwd — per-pair gradients by back-to-front replay
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
+                        final_T, n_contrib, tiles_x: int, tiles_y: int,
+                        return_evals: bool = False):
+    """Plain PyTorch version of the backward kernel: the same closed-form
+    per-pair gradients (see ``csrc/composite_bwd.cu``), computed chunk by
+    chunk of ``PLAIN_CHUNK`` pairs back to front over every tile at once,
+    without autograd (a graph through the scan would need tens of GB at
+    1080p). Within a chunk, T before each pair is the carried T divided by
+    the suffix product of (1 - a), and S the carried S plus the exclusive
+    suffix sum — the kernel's sequential replay up to float reassociation.
+    Returns the (P, 9) table; with ``return_evals`` also the (T, 256)
+    count of contributing (pair, pixel) evaluations."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    num_tiles = tiles_x * tiles_y
+    dev = gauss_attrs.device
+    _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
+    n_pairs = pair_gauss.shape[0]
+    out = torch.zeros((n_pairs, GRAD_W), dtype=torch.float32, device=dev)
+    n_live = torch.zeros((num_tiles, PIX), dtype=torch.int64, device=dev)
+    if num_tiles == 0 or n_pairs == 0:
+        return (out, n_live) if return_evals else out
+    means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
+    pix = _tile_pixel_coords(tiles_x, tiles_y, dev)
+    px, py = pix[:, :, None, 0], pix[:, :, None, 1]
+    start = tile_start[:num_tiles].to(torch.int64)
+    ncon = n_contrib.to(torch.int64)
+    maxn = ncon.amax(1)  # (T,)
+    n_rounds = -(-int(maxn.max()) // PLAIN_CHUNK)
+    k_local = torch.arange(PLAIN_CHUNK, dtype=torch.int64, device=dev)
+    V = d_tile_colors[:, :, None, :]  # (T, 256, 1, 3)
+    tn_u = (final_T * d_tile_T)[..., None]
+    T_c = final_T.clone()  # T after every pair of the chunks replayed so far
+    S = torch.zeros_like(final_T)
+
+    for k in reversed(range(n_rounds)):
+        off = k * PLAIN_CHUNK + k_local  # (K,) local pair index
+        in_range = off[None, :] < maxn[:, None]  # (T, K)
+        idx = torch.clamp(start[:, None] + off[None, :], 0, n_pairs - 1)
+        g = pair_gauss[idx].to(torch.int64)
+        mean, con, col, op = means2d[g], conics[g], colors[g], opacities[g]
+        dx = px - mean[:, None, :, 0]  # (T, 256, K)
+        dy = py - mean[:, None, :, 1]
+        ca, cb, cc = (con[:, None, :, i] for i in range(3))
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        raw = op[:, None, :] * torch.exp(power)
+        alpha = torch.clamp_max(raw, ALPHA_MAX)
+        contrib = (in_range[:, None, :] & (off < ncon[..., None])
+                   & (power <= 0.0) & (alpha >= ALPHA_MIN))
+        a = torch.where(contrib, alpha, torch.zeros_like(alpha))
+        one_m = 1.0 - a
+        suffix = torch.flip(torch.cumprod(torch.flip(one_m, [-1]), -1), [-1])  # inclusive
+        T_i = T_c[..., None] / suffix  # T before each pair
+        w = a * T_i
+        cdotv = (V * col[:, None, :, :]).sum(-1)
+        q = w * cdotv
+        S_i = S[..., None] + torch.flip(torch.cumsum(torch.flip(q, [-1]), -1), [-1]) - q
+        dalpha = T_i * cdotv - (S_i + tn_u) / one_m
+        g_pow = torch.where(contrib & (raw <= ALPHA_MAX), alpha * dalpha,
+                            torch.zeros_like(alpha))
+        s_dx, s_dy = (dx * g_pow).sum(1), (dy * g_pow).sum(1)  # (T, K)
+        rgb = (w[..., None] * V).sum(1)  # (T, K, 3)
+        grads = torch.stack([
+            con[..., 0] * s_dx + con[..., 1] * s_dy,
+            con[..., 2] * s_dy + con[..., 1] * s_dx,
+            -0.5 * (dx * dx * g_pow).sum(1),
+            -(dx * dy * g_pow).sum(1),
+            -0.5 * (dy * dy * g_pow).sum(1),
+            g_pow.sum(1) / torch.clamp_min(op, 1e-12),
+            rgb[..., 0], rgb[..., 1], rgb[..., 2],
+        ], dim=-1)  # (T, K, 9)
+        out[idx[in_range]] = grads[in_range]
+        n_live += contrib.sum(-1)
+        T_c = T_c / suffix[..., 0]
+        S = S + q.sum(-1)
+    return (out, n_live) if return_evals else out
+
+
+def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
+                  n_contrib, tiles_x: int, tiles_y: int):
+    """Per-pair gradients of the compositing: row i of the returned (P, 9)
+    float32 table holds d(loss)/d(mean x, mean y, conic a, b, c, opacity,
+    r, g, b) of sorted pair i's gaussian as blended in its tile; rows of
+    pairs that no pixel blends are zero. Inputs: the forward's inputs,
+    the cotangents ``d_tile_colors`` (T, 256, 3) and ``d_tile_T`` (T, 256),
+    and the forward's ``final_T`` (T, 256) and ``n_contrib`` (T, 256)
+    int32. CUDA tensors launch the kernel (counted in
+    ``composite_bwd.launches``); CPU tensors take
+    :func:`composite_bwd_plain`; anything else raises."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    dev = gauss_attrs.device
+    if dev.type == "cpu":
+        return composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
+                                   d_tile_T, final_T, n_contrib, tiles_x, tiles_y)
+    _cuda_device("composite_bwd", dev)
+    num_tiles = tiles_x * tiles_y
+    _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
+    ins = [x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs, d_tile_colors,
+                                    d_tile_T, final_T, n_contrib)]
+    pair_grads = torch.zeros((pair_gauss.shape[0], GRAD_W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("composite_bwd", load_library().gsjax_composite_bwd,
+                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), num_tiles, tiles_x)
+    composite_bwd.launches += 1
+    return pair_grads
+
+
+composite_bwd.launches = 0
+
+
+# --------------------------------------------------------------------------
+# reduction to gaussians, and the differentiable compositor
+# --------------------------------------------------------------------------
+
+
+def reduce_pair_grads(pair_grads, pair_gauss, tile_start, n_gauss: int):
+    """Sum the (P, 9) per-pair gradients of the valid pairs (the first
+    ``tile_start[-1]``) into (n_gauss, 9) per-gaussian ones.
+
+    ``pair_gauss`` holds each pair's original gaussian row, so reducing by
+    it needs none of gsjax's slot bookkeeping (``gauss_inv_perm``, the
+    ``slow_lo`` overflow path): tiered and compact binning come out right
+    by construction, and pairs lost to the budget simply have no row.
+    Deterministic on every device: a stable sort by gaussian, then
+    ``segment_reduce``, which sums each segment in order (no float
+    atomics). Memory O(P * 9 + N * 9)."""
+    num_valid = int(tile_start[-1])
+    if num_valid == 0:
+        return torch.zeros((n_gauss, GRAD_W), dtype=torch.float32, device=pair_grads.device)
+    g, order = torch.sort(pair_gauss[:num_valid].to(torch.int64), stable=True)
+    lengths = torch.bincount(g, minlength=n_gauss)
+    return torch.segment_reduce(pair_grads[:num_valid][order], "sum",
+                                lengths=lengths, axis=0, unsafe=True)
+
+
+def composite_grads(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
+                    final_T, n_contrib, tiles_x: int, tiles_y: int):
+    """Backward of the compositing to per-gaussian cotangents — the
+    counterpart of gsjax's ``composite_pallas_grads``: :func:`composite_bwd`
+    then :func:`reduce_pair_grads`. Returns ``(d_means2d (N, 2), d_conics
+    (N, 3), d_colors (N, 3), d_opacities (N,))``."""
+    pair_grads = composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
+                               d_tile_T, final_T, n_contrib, tiles_x, tiles_y)
+    per_gauss = reduce_pair_grads(pair_grads, pair_gauss, tile_start, gauss_attrs.shape[0])
+    return per_gauss[:, 0:2], per_gauss[:, 2:5], per_gauss[:, 6:9], per_gauss[:, 5]
+
+
+class CompositeFunction(torch.autograd.Function):
+    """Differentiable compositing (gsjax's ``_composite_vjp``): forward
+    through :func:`composite_fwd`, backward through :func:`composite_grads`.
+    Inputs ``(means2d, conics, colors, opacities, tile_start, pair_gauss,
+    tiles_x, tiles_y)``; outputs ``(tile_colors, tile_T)``; gradients for
+    the first four."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, tile_start, pair_gauss,
+                tiles_x, tiles_y):
+        attrs = pack_gauss_attrs(means2d, conics, colors, opacities)
+        tile_colors, tile_T, n_contrib = composite_fwd(
+            tile_start, pair_gauss, attrs, tiles_x, tiles_y)
+        ctx.save_for_backward(tile_start, pair_gauss, attrs, tile_T, n_contrib)
+        ctx.tiles = (tiles_x, tiles_y)
+        return tile_colors, tile_T
+
+    @staticmethod
+    def backward(ctx, d_tile_colors, d_tile_T):
+        tile_start, pair_gauss, attrs, tile_T, n_contrib = ctx.saved_tensors
+        d_means2d, d_conics, d_colors, d_opacities = composite_grads(
+            tile_start, pair_gauss, attrs, d_tile_colors, d_tile_T, tile_T, n_contrib,
+            *ctx.tiles)
+        return d_means2d, d_conics, d_colors, d_opacities, None, None, None, None
+
+
+def composite(means2d, conics, colors, opacities, tile_start, pair_gauss,
+              tiles_x: int, tiles_y: int):
+    """Differentiable compositing of one frame: ``(tile_colors (T, 256, 3),
+    tile_T (T, 256))``, with gradients to the four per-gaussian inputs."""
+    return CompositeFunction.apply(means2d, conics, colors, opacities, tile_start,
+                                   pair_gauss, tiles_x, tiles_y)

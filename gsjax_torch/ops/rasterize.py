@@ -15,11 +15,17 @@ port       gsjax       compositor
 "scan"     "xla"       :func:`~gsjax_torch.ops.composite.composite_tiles`,
                        the chunked torch scan (capped at
                        ``max_splats_per_tile``; differentiable)
-"kernel"   "pallas"    :func:`~gsjax_torch.ops.cuda_composite.composite_infer`,
-                       the CUDA inference kernel (its plain version on CPU
-                       tensors); no gradient in this slice
+"kernel"   "pallas"    the CUDA kernels of
+                       :mod:`~gsjax_torch.ops.cuda_composite` (their plain
+                       versions on CPU tensors); differentiable
 "auto"     "auto"      "kernel" for CUDA tensors, "scan" for CPU tensors
 =========  ==========  ==================================================
+
+The kernel backend follows gsjax's custom-VJP split: when grad is enabled
+and a blend input requires grad, it takes the differentiable
+:func:`~gsjax_torch.ops.cuda_composite.composite` (training forward kernel,
+backward kernel and reduction); otherwise the bookkeeping-free
+``composite_infer``, so the render path is exactly what it was.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from gsjax_torch.ops.composite import (
     assemble_image,
     composite_tiles,
 )
-from gsjax_torch.ops.cuda_composite import composite_infer, pack_gauss_attrs
+from gsjax_torch.ops.cuda_composite import composite, composite_infer, pack_gauss_attrs
 from gsjax_torch.ops.projection import TILE, num_tiles, preprocess, project_points
 
 
@@ -48,10 +54,11 @@ class RasterizeSettings:
     duplication buffer (overflow is counted in ``num_dropped``);
     ``max_splats_per_tile`` bounds the scan's per-tile depth.
 
-    Fields this slice does not read yet, kept so a settings object maps
-    one to one onto gsjax's: ``pallas_chunk`` (the kernel stages a fixed
-    256 pairs), ``grad_dtype`` and ``grad_reduce`` (the backward, next
-    slice), ``splat_exchange`` and ``a2a_rows`` (multi-device)."""
+    Fields the port does not read, kept so a settings object maps one to
+    one onto gsjax's: ``pallas_chunk`` (the kernels stage fixed batches),
+    ``grad_dtype`` and ``grad_reduce`` (gsjax's TPU bandwidth knobs: the
+    port computes and reduces per-pair gradients in float32 whatever they
+    say), ``splat_exchange`` and ``a2a_rows`` (multi-device)."""
 
     max_pairs: int = 1 << 20
     max_splats_per_tile: int = 1024
@@ -127,15 +134,13 @@ def render(
     if backend == "kernel":
         blend_in = (splats.means2d, splats.conics, splats.colors, splats.opacities)
         if torch.is_grad_enabled() and any(t.requires_grad for t in blend_in):
-            raise RuntimeError(
-                "the kernel backend renders without gradients: its backward "
-                "kernel comes with the training slice. Render under "
-                "torch.no_grad() or use backend='scan' to differentiate."
+            tile_colors, tile_T = composite(
+                *blend_in, bins.tile_start, bins.pair_gauss, tiles_x, tiles_y)
+        else:
+            tile_colors, tile_T = composite_infer(
+                bins.tile_start, bins.pair_gauss, pack_gauss_attrs(*blend_in),
+                tiles_x, tiles_y,
             )
-        tile_colors, tile_T = composite_infer(
-            bins.tile_start, bins.pair_gauss, pack_gauss_attrs(*blend_in),
-            tiles_x, tiles_y,
-        )
         num_tile_capped = torch.zeros((), dtype=torch.int32, device=dev)
     else:
         tile_colors, tile_T, num_tile_capped = composite_tiles(

@@ -1,0 +1,165 @@
+"""Optimizer: Adam with per-parameter-group learning rates (torch).
+
+Counterpart of ``gsjax.train.optim``: the reference's six Adam param
+groups with ``eps = 1e-15`` (reference: scene/gaussian_model.py:149-167),
+xyz on the exponential-decay schedule scaled by the scene radius, f_rest at
+feature_lr / 20, the rest at fixed rates.
+
+gsjax chains ``optax.scale_by_adam`` with a per-leaf learning-rate
+transform; the port uses ``torch.optim.Adam`` with one named group per
+parameter over the state's parameter tensors, which it updates in place.
+Before each step every group's lr is set from its schedule at
+``step = count + 1`` (reference iterations start at 1), as gsjax's
+``scale_by_group_lr`` does. Both apply the same bias-corrected update
+``lr * m_hat / (sqrt(v_hat) + eps)``; they differ only in float rounding
+(torch updates the first moment with ``lerp``, optax with a multiply-add).
+
+:func:`adam_moments` / :func:`with_adam_moments` read and replace the
+moments (densification edits them), and :func:`opt_state_from_numpy` /
+:func:`opt_state_to_numpy` carry a mid-training optimizer state over from
+gsjax and back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from gsjax_torch.models.gaussians import PARAM_KEYS
+from gsjax_torch.utils.schedules import expon_lr_schedule
+
+BETAS = (0.9, 0.999)
+EPS = 1e-15
+
+
+class GaussianAdam(torch.optim.Adam):
+    """``torch.optim.Adam`` over a state's six parameter tensors, one named
+    group each, with the learning rates of ``lr_fns`` (name -> (step ->
+    lr)). ``count`` is the number of applied steps (optax's count)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr_fns):
+        groups = [{"params": [params[k]], "name": k, "lr": float(lr_fns[k](1))}
+                  for k in PARAM_KEYS]
+        super().__init__(groups, betas=BETAS, eps=EPS)
+        self.lr_fns = lr_fns
+        self.count = 0
+
+    def set_lrs(self):
+        """Set every group's lr from its schedule at ``count + 1``."""
+        for group in self.param_groups:
+            group["lr"] = float(self.lr_fns[group["name"]](self.count + 1))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.set_lrs()
+        super().step(closure)
+        self.count += 1
+
+    def param(self, name: str) -> torch.Tensor:
+        return next(g["params"][0] for g in self.param_groups if g["name"] == name)
+
+
+class GroupAdam:
+    """The optimizer's recipe, as gsjax's ``make_optimizer`` returns an
+    optax transformation: :meth:`init` binds it to a parameter dict."""
+
+    def __init__(self, lr_fns):
+        self.lr_fns = lr_fns
+
+    def init(self, params: Dict[str, torch.Tensor]) -> GaussianAdam:
+        """Make ``params`` leaf tensors that require grad (in place) and
+        return the optimizer over them, with zero moments and count 0."""
+        for k in PARAM_KEYS:
+            params[k].requires_grad_(True)
+        return GaussianAdam(params, self.lr_fns)
+
+
+def make_optimizer(opt_cfg, spatial_lr_scale: float) -> GroupAdam:
+    """Build the training optimizer for a Gaussian parameter dict.
+
+    ``opt_cfg`` carries the reference's OptimizationParams fields
+    (arguments/__init__.py:71-90)."""
+    xyz_sched = expon_lr_schedule(
+        lr_init=opt_cfg.position_lr_init * spatial_lr_scale,
+        lr_final=opt_cfg.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+        max_steps=opt_cfg.position_lr_max_steps,
+    )
+    return GroupAdam({
+        "xyz": xyz_sched,
+        "features_dc": lambda _: opt_cfg.feature_lr,
+        "features_rest": lambda _: opt_cfg.feature_lr / 20.0,
+        "opacity": lambda _: opt_cfg.opacity_lr,
+        "scaling": lambda _: opt_cfg.scaling_lr,
+        "rotation": lambda _: opt_cfg.rotation_lr,
+    })
+
+
+def adam_moments(opt: GaussianAdam):
+    """The first and second moments as two dicts keyed by parameter name
+    (zeros before the first step)."""
+    mu, nu = {}, {}
+    for k in PARAM_KEYS:
+        p = opt.param(k)
+        st = opt.state.get(p, {})
+        mu[k] = st.get("exp_avg", torch.zeros_like(p, memory_format=torch.preserve_format))
+        nu[k] = st.get("exp_avg_sq", torch.zeros_like(p, memory_format=torch.preserve_format))
+    return mu, nu
+
+
+def with_adam_moments(opt: GaussianAdam, mu, nu) -> GaussianAdam:
+    """Replace the moments (after densification); returns ``opt``."""
+    step = torch.tensor(float(opt.count), dtype=torch.float32)
+    for k in PARAM_KEYS:
+        p = opt.param(k)
+        opt.state[p] = {
+            "step": step.clone(),
+            "exp_avg": mu[k].detach().to(p.device, torch.float32).clone(),
+            "exp_avg_sq": nu[k].detach().to(p.device, torch.float32).clone(),
+        }
+    return opt
+
+
+def opt_state_from_numpy(mu, nu, count: int, optimizer: GaussianAdam) -> GaussianAdam:
+    """Load gsjax's Adam state into ``optimizer``: ``mu`` and ``nu`` as
+    dicts of numpy arrays keyed by parameter name (``adam_moments`` of a
+    gsjax ``opt_state``), ``count`` its step count."""
+    optimizer.count = int(count)
+    return with_adam_moments(
+        optimizer,
+        {k: torch.from_numpy(np.array(mu[k], np.float32)) for k in PARAM_KEYS},
+        {k: torch.from_numpy(np.array(nu[k], np.float32)) for k in PARAM_KEYS},
+    )
+
+
+def opt_state_to_numpy(optimizer: GaussianAdam):
+    """The inverse of :func:`opt_state_from_numpy`: ``(mu, nu, count)``."""
+    mu, nu = adam_moments(optimizer)
+
+    def np_(d):
+        return {k: v.detach().cpu().numpy() for k, v in d.items()}
+
+    return np_(mu), np_(nu), int(optimizer.count)
+
+
+def grow_optimizer(optimizer: GaussianAdam, params: Dict[str, torch.Tensor]) -> GaussianAdam:
+    """Carry ``optimizer`` over to the grown ``params`` of
+    ``models.gaussians.grow_capacity``: a new optimizer over them with the
+    moments zero-padded to the new capacity and the same count (gsjax's
+    ``grow_opt_state``, train/loop.py:59-69). Capacity is fixed between
+    growths, so the optimizer's parameter tensors stay the state's."""
+    mu, nu = adam_moments(optimizer)
+
+    def pad(a, like):
+        out = torch.zeros_like(like, dtype=torch.float32)
+        out[: a.shape[0]] = a
+        return out
+
+    grown = GroupAdam(optimizer.lr_fns).init(params)
+    grown.count = optimizer.count
+    if not optimizer.state:  # no step taken yet: nothing to carry
+        return grown
+    return with_adam_moments(grown, {k: pad(mu[k], params[k]) for k in PARAM_KEYS},
+                             {k: pad(nu[k], params[k]) for k in PARAM_KEYS})

@@ -1,10 +1,10 @@
 """Scene container: dataset + model directory (load branch of ``gsjax.train.scene``).
 
-Loads the dataset's cameras (in the dataset's order: the render path
-never shuffles) and a trained model's PLY snapshot from
-``<model>/point_cloud/iteration_<N>/point_cloud.ply`` onto a device. A
-fresh scene initialized from the SfM point cloud (``load_iteration=None``)
-comes with the training slice.
+Loads the dataset's cameras (in the dataset's order) and either a trained
+model's PLY snapshot from
+``<model>/point_cloud/iteration_<N>/point_cloud.ply`` or, with
+``load_iteration=None``, a fresh model initialized from the dataset's SfM
+point cloud (``create_from_pcd``), onto a device.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import List, Optional
 from gsjax_torch.configs import ModelParams
 from gsjax_torch.data.cameras import Camera
 from gsjax_torch.data.dataset_readers import load_camera_images, load_scene_info
-from gsjax_torch.models.gaussians import GaussianState, load_gaussian_ply
+from gsjax_torch.models.gaussians import GaussianState, create_from_pcd, load_gaussian_ply
 from gsjax_torch.utils.system import search_for_max_iteration
 
 
@@ -25,21 +25,18 @@ class Scene:
         model: ModelParams,
         load_iteration: Optional[int] = None,
         device="cuda",
+        capacity: Optional[int] = None,
     ):
-        if load_iteration is None:
-            raise NotImplementedError(
-                "Scene(load_iteration=None) initializes a model from the SfM "
-                "point cloud for training, which comes with the training "
-                "slice; pass load_iteration (-1 = latest) to load a model"
-            )
         self.model_path = model.model_path
+        self.loaded_iter = None
         if load_iteration == -1:
             self.loaded_iter = search_for_max_iteration(
                 os.path.join(self.model_path, "point_cloud")
             )
-        else:
+        elif load_iteration is not None:
             self.loaded_iter = load_iteration
-        print(f"Loading trained model at iteration {self.loaded_iter}")
+        if self.loaded_iter:
+            print(f"Loading trained model at iteration {self.loaded_iter}")
 
         info = load_scene_info(
             model.source_path,
@@ -51,15 +48,26 @@ class Scene:
         self.train_cameras = load_camera_images(list(info.train_cameras), model.resolution)
         self.test_cameras = load_camera_images(list(info.test_cameras), model.resolution)
 
-        self.gaussians: GaussianState = load_gaussian_ply(
-            os.path.join(
-                self.model_path, "point_cloud",
-                f"iteration_{self.loaded_iter}", "point_cloud.ply",
-            ),
-            max_sh_degree=model.sh_degree,
-            spatial_lr_scale=self.cameras_extent,
-            device=device,
-        )
+        if self.loaded_iter:
+            self.gaussians: GaussianState = load_gaussian_ply(
+                os.path.join(
+                    self.model_path, "point_cloud",
+                    f"iteration_{self.loaded_iter}", "point_cloud.ply",
+                ),
+                max_sh_degree=model.sh_degree,
+                spatial_lr_scale=self.cameras_extent,
+                capacity=capacity,
+                device=device,
+            )
+        else:
+            self.gaussians = create_from_pcd(
+                info.point_cloud.points,
+                info.point_cloud.colors,
+                spatial_lr_scale=self.cameras_extent,
+                max_sh_degree=model.sh_degree,
+                capacity=capacity,
+                device=device,
+            )
 
     def get_train_cameras(self) -> List[Camera]:
         return self.train_cameras

@@ -1,4 +1,4 @@
-"""The CUDA compositing kernel on the card, against its plain version.
+"""The CUDA compositing kernels on the card, against their plain versions.
 
 Imports neither JAX nor gsjax nor the shared conftest helpers, so it runs
 where only the port is installed:
@@ -133,14 +133,106 @@ def test_kernel_f16_overflow_matches_plain_version():
     assert_two_tier(outs["kernel"][fin], outs["scan"][fin], "finite pixels")
 
 
+
+
+def assert_norm_tiers(got, want, name, p999=1e-3, mx=2e-2):
+    """Gradients normalised by max |want|: p99.9 of |got - want| within
+    ``p999``, every value within ``mx`` (a pair on the 1/255 cut or the
+    1e-4 exit taken by one version and not the other moves its gradients
+    by a whole contribution)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    assert bool(torch.isfinite(got).all()), name
+    d = ((got - want).abs() / max(float(want.abs().max()), 1e-12)).flatten().sort().values
+    assert float(d[int(0.999 * (d.numel() - 1))]) <= p999 and float(d[-1]) <= mx, (
+        name, float(d[-1]))
+
+
+def _bwd_inputs(args, seed=0):
+    tile_start, pair_gauss, attrs, tx, ty = args
+    tc, tT, ncon = cc.composite_fwd(*args)
+    g = torch.Generator(device=tc.device).manual_seed(seed)
+    d_colors = torch.randn(tc.shape, generator=g, device=tc.device)
+    d_T = torch.randn(tT.shape, generator=g, device=tc.device)
+    return (tile_start, pair_gauss, attrs, d_colors, d_T, tT, ncon, tx, ty)
+
+
 @pytest.mark.cuda
-def test_kernel_path_refuses_gradients_on_cuda():
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+@pytest.mark.parametrize("size", [(64, 64), (70, 45)])
+def test_fwd_kernel_matches_plain_version_and_infer(dense, size):
     dev = _cuda()
-    gs = [torch.from_numpy(g).to(dev) for g in _scene(30, 2)]
-    gs[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        render(_camera(32, 32, dev), *gs, 3, torch.zeros(3, device=dev),
-               RasterizeSettings())
+    args = _inputs(_scene(300, 4, dense), *size, dev)
+    before = cc.composite_fwd.launches
+    kc, kT, kn = cc.composite_fwd(*args)
+    torch.cuda.synchronize()
+    assert cc.composite_fwd.launches == before + 1
+    pc, pT, pn = cc.composite_fwd_plain(*args)
+    assert_two_tier(kc, pc, "tile_colors")
+    assert_two_tier(kT, pT, "tile_T")
+    assert kn.dtype == torch.int32 and float((kn == pn).float().mean()) >= 0.999
+    ic, iT = cc.composite_infer(*args)  # the same recurrence: bit for bit
+    assert torch.equal(ic, kc) and torch.equal(iT, kT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+def test_bwd_kernel_matches_plain_version(dense):
+    dev = _cuda()
+    args = _inputs(_scene(300, 4, dense), 70, 45, dev)
+    bwd = _bwd_inputs(args)
+    before = cc.composite_bwd.launches
+    kg = cc.composite_bwd(*bwd)
+    torch.cuda.synchronize()
+    assert cc.composite_bwd.launches == before + 1
+    pg = cc.composite_bwd_plain(*bwd)
+    assert float(pg.abs().max()) > 0
+    for i, name in enumerate(("mean_x", "mean_y", "conic_a", "conic_b", "conic_c",
+                              "opacity", "r", "g", "b")):
+        assert_norm_tiers(kg[:, i], pg[:, i], name)
+    n = args[2].shape[0]
+    kr = cc.reduce_pair_grads(kg, args[1], args[0], n)
+    pr = cc.reduce_pair_grads(pg, args[1], args[0], n)
+    for i in range(9):
+        assert_norm_tiers(kr[:, i], pr[:, i], f"per-gaussian {i}")
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_and_reduction_are_deterministic():
+    dev = _cuda()
+    args = _inputs(_scene(300, 9, True), 80, 64, dev)
+    bwd = _bwd_inputs(args, seed=3)
+    runs = [cc.composite_grads(*bwd) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_path_launches_the_training_kernels():
+    dev = _cuda()
+    gs = _scene(300, 7)
+    s = RasterizeSettings(max_pairs=1 << 15)
+    counts = lambda: (cc.composite_infer.launches, cc.composite_fwd.launches,  # noqa: E731
+                      cc.composite_bwd.launches)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        leaves = [torch.from_numpy(g).to(device).requires_grad_(True) for g in gs]
+        before = counts()
+        out = render(_camera(80, 48, device), *leaves, 3, torch.zeros(3, device=device),
+                     RasterizeSettings(max_pairs=1 << 15, backend="kernel"))
+        (out["render"] * out["render"]).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert counts() == (before[0], before[1] + 1, before[2] + 1)
+        grads[device.type] = [x.grad for x in leaves]
+    for name, a, b in zip(("means3d", "scales", "quats", "opacities", "shs"),
+                          grads["cuda"], grads["cpu"]):
+        assert_norm_tiers(a, b, name)
+    before = counts()
+    with torch.no_grad():
+        render(_camera(80, 48, dev), *(torch.from_numpy(g).to(dev) for g in gs), 3,
+               torch.zeros(3, device=dev), s)
+    assert counts() == (before[0] + 1, before[1], before[2])
 
 
 def test_wrapper_checks_inputs():
@@ -157,6 +249,15 @@ def test_wrapper_checks_inputs():
         cc.composite_infer(ts, pg, attrs[:, :7], 2, 2)
     tc, tT = cc.composite_infer(ts, pg, attrs, 2, 2)  # empty ranges, on the CPU
     assert tc.shape == (4, 256, 3) and bool((tT == 1).all()) and float(tc.abs().max()) == 0
+    tc, tT, ncon = cc.composite_fwd(ts, pg, attrs, 2, 2)
+    assert ncon.dtype == torch.int32 and not ncon.any()
+    d = torch.zeros(4, 256, 3)
+    with pytest.raises(ValueError, match="n_contrib"):
+        cc.composite_bwd(ts, pg, attrs, d, tT, tT, ncon.long(), 2, 2)
+    with pytest.raises(ValueError, match="d_tile_colors"):
+        cc.composite_bwd(ts, pg, attrs, d[:3], tT, tT, ncon, 2, 2)
+    grads = cc.composite_bwd(ts, pg, attrs, d, tT, tT, ncon, 2, 2)
+    assert grads.shape == (3, 9) and not grads.any()
 
 
 def test_gauss_attrs_layout():

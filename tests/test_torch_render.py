@@ -95,17 +95,39 @@ def test_render_matches_gsjax_both_backends(case, width, height):
 
 
 def test_auto_backend_and_gradient_rules():
-    """auto -> scan on CPU tensors (differentiable); the kernel path refuses
-    gradients rather than detaching them."""
+    """auto -> scan on CPU tensors; both backends are differentiable. The
+    kernel backend takes the differentiable compositor (training forward +
+    backward + reduction) when a blend input requires grad, and the
+    inference compositor otherwise (tests/test_torch_train_composite.py
+    holds its gradients against gsjax)."""
+    from gsjax_torch.ops import cuda_composite as t_cc
+
     gs = make_test_gaussians(60, np.random.default_rng(2))
     cam = t_camera(make_test_camera(48, 48))
-    means = _t(gs[0]).requires_grad_(True)
-    out = t_render(cam, means, *map(_t, gs[1:]), 3, torch.zeros(3), TSettings())
-    out["render"].sum().backward()
-    assert means.grad is not None and torch.isfinite(means.grad).all()
-    with pytest.raises(RuntimeError, match="training slice"):
+    grads = {}
+    for backend in ("auto", "kernel"):
+        means = _t(gs[0]).requires_grad_(True)
+        out = t_render(cam, means, *map(_t, gs[1:]), 3, torch.zeros(3),
+                       TSettings(backend=backend))
+        out["render"].sum().backward()
+        assert means.grad is not None and torch.isfinite(means.grad).all()
+        assert float(means.grad.abs().max()) > 0
+        grads[backend] = means.grad
+    scale = float(grads["auto"].abs().max())
+    assert float((grads["kernel"] - grads["auto"]).abs().max()) <= 1e-5 * scale
+    calls = []
+    fwd, infer = t_cc.composite_fwd_plain, t_cc.composite_infer_plain
+    t_cc.composite_fwd_plain = lambda *a: calls.append("fwd") or fwd(*a)
+    t_cc.composite_infer_plain = lambda *a: calls.append("infer") or infer(*a)
+    try:
+        with torch.no_grad():
+            t_render(cam, means, *map(_t, gs[1:]), 3, torch.zeros(3),
+                     TSettings(backend="kernel"))
         t_render(cam, means, *map(_t, gs[1:]), 3, torch.zeros(3),
                  TSettings(backend="kernel"))
+    finally:
+        t_cc.composite_fwd_plain, t_cc.composite_infer_plain = fwd, infer
+    assert calls == ["infer", "fwd"]
     with pytest.raises(ValueError):
         TSettings(backend="pallas")  # the port's names are scan / kernel
 

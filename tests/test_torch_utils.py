@@ -138,6 +138,21 @@ def test_budget_defaults_and_scene_load_branch(tmp_path):
         for f in dataclasses.fields(js):
             want = getattr(js, f.name)
             assert getattr(ts, f.name) == {"xla": "scan"}.get(want, want), f.name
-    with pytest.raises(NotImplementedError, match="training slice"):
-        Scene(ModelParams(source_path=str(tmp_path), model_path=str(tmp_path)),
-              device="cpu")
+    # no load_iteration: a fresh model from the SfM points, as gsjax's
+    from gsjax.data.dataset_readers import read_colmap_scene as j_read
+    from gsjax.models.gaussians import create_from_pcd as j_create
+    from test_colmap import _write_scene
+
+    src = str(tmp_path / "scene")
+    _write_scene(src)
+    scene = Scene(ModelParams(source_path=src, model_path=str(tmp_path / "model")),
+                  device="cpu")
+    assert scene.loaded_iter is None
+    info = j_read(src)
+    j = j_create(info.point_cloud.points, info.point_cloud.colors, info.radius)
+    assert scene.gaussians.capacity == j.capacity
+    assert scene.gaussians.spatial_lr_scale == j.spatial_lr_scale
+    np.testing.assert_array_equal(scene.gaussians.active.numpy(), np.asarray(j.active))
+    for k, v in j.params.items():
+        np.testing.assert_allclose(scene.gaussians.params[k].numpy(), np.asarray(v),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)  # kNN: float64 vs f32 distances
