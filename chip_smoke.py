@@ -20,12 +20,25 @@ Phases, in order; any failure exits nonzero:
    full width (targets: the scene with its base color shifted, rendered
    from the 4 poses), launch counts reset just before and read just after;
    step times and one step's per-phase times with CUDA events;
+   then ``profiling.trace`` (``torch.profiler``) around 4 more steps: the
+   top kernels by device time and the device's busy share of the window;
 6. one train step through the kernel backend against one through the
    differentiable scan backend on a 20,000-gaussian 256x256 scene;
 7. the offline-render CLI (``gsjax_torch.render``) on a small synthetic
    scene written to a temporary directory;
-8. a ``{"kernels": [...]}`` line, the card line, and last the
-   ``{"ok": true, "device": ...}`` line.
+8. the speed-of-light probe (``sol_probe``) against its plain version at
+   the 512x512 and the 1080p frame's ``tile_start``, for every swept
+   (k_ops, k_exp), the exp instances also under the check coefficients
+   (``cuda_probe.check_exp_coefs``: under the probes' own an exp pass
+   forgets its input); its times, and the exp passes' times linear in
+   their count; then the measurement path as a user
+   runs it: ``python -m gsjax_torch.probes --stages
+   gather,sort,phases,bwdsplit,vpu,vpux --out`` (the probe path: its
+   launch counts come from its last line);
+9. ``python -m gsjax_torch.bench --roofline``: a positive frame rate, a
+   passed cross-check and no dropped pair;
+10. a ``{"kernels": [...]}`` line, the card line, and last the
+    ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or gsjax. Exits nonzero with no result when CUDA is
 unavailable or the port's package is missing.
@@ -68,92 +81,28 @@ GRAD_P999_TOL = 1e-5
 # p99.9 of |difference| / lr (measured 4.8e-5).
 UPDATE_P999_TOL = 1e-3
 NCON_AGREE = 0.999  # n_contrib equal to the plain version's on >= 99.9% of pixels
-
-# H100 SXM data-sheet peaks: HBM3 bandwidth and
-# float32 rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# float32 operations per evaluated (pair, pixel): dx, dy (2), the quadratic
-# form (11), the exp (1), op * exp (1), the 0.99 clamp (1). The blend of a
-# contributing pair adds ~9 more and is not counted, so this is a floor.
-OPS_PER_EVAL = 16
-# Backward: every (pair, pixel) up to the pixel's n_contrib needs dx, dy and
-# the quadratic form (13); a contributing one adds the exp, alpha, T
-# rebuilt by a division, w, c.V (5), dL/dalpha (5), S (2), g_pow (2), the
-# nine pixel-sum terms and their nine adds (~40). A floor again.
-OPS_BWD_WALK = 13
-OPS_BWD_CONTRIB = 40
+# sol_probe vs its plain version, relative: nvcc contracts x * a + b into
+# one FMA where torch rounds twice, and the 128 lanes are summed in another
+# order. Measured on an NVIDIA H100 80GB HBM3 (700 W): 1.9e-6 at the 1080p
+# frame; the tolerance is about 10x that. Under the check coefficients a
+# pass too few or a wrong chunk moves a tile by more than 100x the
+# tolerance (tests/test_torch_probes.py).
+PROBE_RTOL = 2e-5
+# (ms(20, 10) - ms(20, 0)) / (2 (ms(20, 5) - ms(20, 0))): 1 when each exp
+# pass costs the same (measured 1.024 on an NVIDIA H100 80GB HBM3, 700 W)
+EXP_LINEAR_TOL = 0.1
+SUBPROCESS_TIMEOUT_S = 600
 
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
 TRAIN_STEPS = 24  # 6 per pose
+TRACE_STEPS = 4
 POSES = [(0.0, (0.0, 0.0, 0.0)), (0.01, (0.02, 0.0, 0.0)),
          (-0.01, (-0.02, 0.01, 0.0)), (0.0, (0.0, -0.02, 0.0))]
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def toy_state(n, capacity, seed=0, log_scale=-2.5, device="cuda"):
-    """The random scene of the repository's bench entry point: ``n``
-    gaussians in [-2, 2]^2 x [4, 10] in front of an identity camera,
-    ``log_scale=-5.2`` for footprints of 1-6 tiles at 1080p, SH degree 3.
-    Built from a numpy seed, rows in the same order as gsjax's recipe."""
-    import torch
-
-    from gsjax_torch.models.gaussians import create_empty
-
-    rng = np.random.default_rng(seed)
-    state = create_empty(capacity, device=device)
-    p = state.params
-
-    def put(key, arr):
-        p[key][:n] = torch.as_tensor(arr.astype(np.float32), device=device)
-
-    put("xyz", np.stack(
-        [rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(4, 10, n)],
-        axis=1,
-    ))
-    put("scaling", rng.normal(log_scale, 0.5, (n, 3)))
-    put("features_dc", rng.normal(0, 0.5, (n, 1, 3)))
-    put("opacity", rng.normal(0, 1, (n, 1)))
-    state.active[:n] = True
-    state.active_sh_degree = 3
-    return state
-
-
-def bench_camera(width, height, yaw=0.0, shift=(0.0, 0.0, 0.0)):
-    """The bench entry point's camera (identity pose, fov_x 0.9), turned by
-    ``yaw`` radians about the view's y axis and moved by ``shift``."""
-    from gsjax_torch.data.cameras import Camera
-
-    c, s = np.cos(yaw), np.sin(yaw)
-    R = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
-    return Camera(
-        uid=0, image_name="bench", R=R, T=np.asarray(shift, np.float64),
-        fov_x=0.9, fov_y=0.9 * height / width, width=width, height=height,
-    )
-
-
-def kernel_inputs(state, rcam, settings):
-    """The compositing kernel's inputs for one frame of the render path."""
-    from gsjax_torch.models.gaussians import activated
-    from gsjax_torch.ops.binning import build_tile_bins
-    from gsjax_torch.ops.cuda_composite import pack_gauss_attrs
-    from gsjax_torch.ops.projection import num_tiles, preprocess
-
-    tiles_x, tiles_y = num_tiles(rcam.width, rcam.height)
-    means3d, scales, quats, opac, shs = activated(state)
-    sp = preprocess(means3d, scales, quats, opac, shs, rcam, state.active_sh_degree,
-                    active_mask=state.active)
-    bins = build_tile_bins(
-        sp, tiles_x, tiles_y, settings.max_pairs,
-        max_tiles_per_gauss=settings.max_tiles_per_gauss,
-        tier_frac=settings.tier_frac, expansion=settings.expansion,
-    )
-    attrs = pack_gauss_attrs(sp.means2d, sp.conics, sp.colors, sp.opacities)
-    return (bins.tile_start, bins.pair_gauss, attrs, tiles_x, tiles_y), bins
 
 
 def compare(name, got, want):
@@ -263,11 +212,14 @@ def time_cuda(fn, reps):
 
 def phase_compare(device):
     """Kernel vs plain version on the 50k-gaussian 512x512 scene (the
-    1080p comparison runs in :func:`main_path`, on its inputs)."""
+    1080p comparison runs in :func:`main_path`, on its inputs). Returns the
+    three kernels' largest errors and the frame's ``tile_start``."""
     import torch
 
+    from gsjax_torch.bench_scene import bench_camera, toy_state
     from gsjax_torch.ops.cuda_composite import composite_infer, composite_infer_plain
     from gsjax_torch.ops.rasterize import RasterizeSettings
+    from gsjax_torch.utils.profiling import state_frame_inputs
 
     log("phase 3: kernel vs plain version")
     worst = 0.0
@@ -275,7 +227,7 @@ def phase_compare(device):
     rcam = bench_camera(512, 512).to_render_camera(device)
     settings = RasterizeSettings(max_pairs=1 << 20, max_splats_per_tile=1024, chunk=32)
     with torch.no_grad():
-        args, bins = kernel_inputs(state, rcam, settings)
+        args, bins = state_frame_inputs(state, rcam, settings)
         kc, kT = composite_infer(*args)
         pc, pT = composite_infer_plain(*args)
         torch.cuda.synchronize()
@@ -283,7 +235,7 @@ def phase_compare(device):
     worst = max(worst, compare("512 tile_colors", kc, pc), compare("512 tile_T", kT, pT))
     with torch.no_grad():
         err_f, err_b, _, _ = check_train_kernels("512", args)
-    return worst, err_f, err_b
+    return (worst, err_f, err_b), bins.tile_start
 
 
 def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
@@ -292,9 +244,10 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     kernels against their plain versions on its first frame. Returns the
     kernels' entries of the ``kernels`` line (launches of the training
     kernels are filled in by :func:`train_path`), the scene, its cameras
-    and settings."""
+    and settings, and the first frame's ``tile_start``."""
     import torch
 
+    from gsjax_torch.bench_scene import bench_camera, toy_state
     from gsjax_torch.models.gaussians import activated
     from gsjax_torch.ops import cuda_composite
     from gsjax_torch.ops.binning import build_tile_bins
@@ -306,6 +259,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     from gsjax_torch.ops.projection import num_tiles, preprocess
     from gsjax_torch.ops.rasterize import RasterizeSettings
     from gsjax_torch.train.step import TrainConfig, make_render_fn
+    from gsjax_torch.utils.profiling import composite_work
 
     log(f"phase 4: main path, {n} gaussians at {w}x{h}")
     state = toy_state(n, capacity, log_scale=-5.2, device=device)
@@ -418,45 +372,42 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     n_pairs = int(b.num_pairs)
     evals = int(n_eval.sum())
     walk = int(bwd[6].to(torch.int64).sum())
-    p = int(b.pair_gauss.numel())
-    n_tiles = tx * ty
-    common = cache["attrs"].numel() * 4 + p * 4 + (n_tiles + 1) * 4
-    px_bytes = n_tiles * 256 * 4
-    log(f"  pairs {n_pairs} (budget {p}), (pair, pixel) evaluations {evals} "
-        f"(walk without early exit: {256 * n_pairs}); backward walk {walk}, "
+    log(f"  pairs {n_pairs} (budget {b.pair_gauss.numel()}), (pair, pixel) evaluations "
+        f"{evals} (walk without early exit: {256 * n_pairs}); backward walk {walk}, "
         f"contributing {n_live}")
-
-    def entry(name, replaces, launches_, err_, ms, plain, bytes_moved, ops):
-        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_F32_PER_S * 1e3
-        log(f"  {name} bound: {bytes_moved} bytes -> {t_bytes:.4f} ms, {ops} float32 ops "
-            f"-> {t_ops:.4f} ms")
-        return {
-            "name": name,
-            "route": "cuda",
-            "source": f"gsjax_torch/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": launches_,
-            "max_abs_err": err_,
-            "ms": ms,
-            "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,  # no single PyTorch call computes these
-        }
-
+    work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, evals, walk, n_live)
     entries = [
-        # in: gaussian table, pair_gauss, tile_start; out: rgb + T (+ n_contrib)
-        entry("composite_infer", "gsjax/ops/pallas_composite.py:561", launches, err,
-              phases["kernel"], plain_ms, common + px_bytes * 4, evals * OPS_PER_EVAL),
-        entry("composite_fwd", "gsjax/ops/pallas_composite.py:396", 0, err_f, fwd_ms,
-              fwd_plain_ms, common + px_bytes * 5, evals * OPS_PER_EVAL),
-        # in: also d_colors, d_T, final_T, n_contrib per pixel; out: (P, 9)
-        entry("composite_bwd", "gsjax/ops/pallas_composite.py:754", 0, err_b, bwd_ms,
-              bwd_plain_ms, common + px_bytes * 6 + p * 9 * 4,
-              walk * OPS_BWD_WALK + n_live * OPS_BWD_CONTRIB),
+        entry(name, f"gsjax/ops/pallas_composite.py:{line}", launches_, err_, ms, plain,
+              *work[name])
+        for name, line, launches_, err_, ms, plain in (
+            ("composite_infer", 561, launches, err, phases["kernel"], plain_ms),
+            ("composite_fwd", 396, 0, err_f, fwd_ms, fwd_plain_ms),
+            ("composite_bwd", 754, 0, err_b, bwd_ms, bwd_plain_ms),
+        )
     ]
-    return entries, state, rcams, settings
+    return entries, state, rcams, settings, b.tile_start
+
+
+def entry(name, replaces, launches, err, ms, plain_ms, bytes_moved, ops, library_ms=None):
+    """One kernel's entry of the ``kernels`` line; its bound from the bytes
+    and operations of this run's inputs (``profiling.bound_ms``)."""
+    from gsjax_torch.utils.profiling import bound_ms
+
+    bound, by = bound_ms(bytes_moved, ops)
+    log(f"  {name} bound: {bytes_moved} bytes, {ops} float32 ops -> {bound:.4f} ms ({by})")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"gsjax_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,  # no single PyTorch call computes these kernels
+    }
 
 
 def shifted_targets(state, rcams, cfg, device):
@@ -538,8 +489,9 @@ def step_phases(state, opt, rcam, gt, cfg):
 
 def train_path(device, state, rcams, settings):
     """The training path at full width: 24 steps of make_train_step on the
-    bench scene. Returns the launch counts of (composite_infer,
-    composite_fwd, composite_bwd) in the counted run."""
+    bench scene, one step split in phases, and a trace of 4 more. Returns
+    the launch counts of (composite_infer, composite_fwd, composite_bwd) in
+    the counted run."""
     import torch
 
     from gsjax_torch.configs import OptimizationParams
@@ -547,6 +499,7 @@ def train_path(device, state, rcams, settings):
     from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_train_step
+    from gsjax_torch.utils.profiling import device_summary, trace
 
     w, h = rcams[0].width, rcams[0].height
     log(f"phase 5: training path, {TRAIN_STEPS} steps of make_train_step, "
@@ -600,6 +553,22 @@ def train_path(device, state, rcams, settings):
         phases = step_phases(state, opt, rcams[0], gt, cfg)
     log("  one step's phases, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
         + f"; sum {sum(phases.values()):.3f}")
+
+    # torch.profiler over a few more steps: kernels by device time, and the
+    # share of the window in which the device was busy
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for i in range(TRACE_STEPS):
+                state, opt, _ = step(state, opt, i % len(rcams))
+            torch.cuda.synchronize()
+        summary = device_summary(prof)
+    if summary is None:
+        log("  device time: not measured (torch.profiler recorded none)")
+    else:
+        log(f"  trace of {TRACE_STEPS} steps: device busy {summary['busy_ms']:.3f} ms of a "
+            f"{summary['window_ms']:.3f} ms window, busy share {summary['busy_share']:.4f}")
+        for name, ms, calls in summary["top"]:
+            log(f"    {ms:9.3f} ms  {calls:6d} calls  {name[:100]}")
     return launches
 
 
@@ -609,10 +578,12 @@ def phase_scan_vs_kernel(device, n=20_000, capacity=32_768, size=256):
     first Adam moment, 0.1 x the gradient) and parameter updates."""
     import torch
 
+    from gsjax_torch.bench_scene import bench_camera, toy_state
     from gsjax_torch.configs import OptimizationParams
     from gsjax_torch.ops.rasterize import RasterizeSettings
     from gsjax_torch.train.optim import adam_moments, make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_train_step
+    from gsjax_torch.utils.profiling import state_frame_inputs
 
     log(f"phase 6: one train step, kernel backend against the scan backend "
         f"({n} gaussians at {size}x{size})")
@@ -620,7 +591,7 @@ def phase_scan_vs_kernel(device, n=20_000, capacity=32_768, size=256):
     probe = RasterizeSettings(max_pairs=1 << 20, expansion="compact", max_tiles_per_gauss=64)
     state0 = toy_state(n, capacity, seed=1, log_scale=-3.0, device=device)
     with torch.no_grad():
-        _, bins = kernel_inputs(state0, rcam, probe)
+        _, bins = state_frame_inputs(state0, rcam, probe)
     longest = int((bins.tile_start[1:] - bins.tile_start[:-1]).max())
     mspt = 32 * -(-longest // 32)
     images = shifted_targets(state0, [rcam], TrainConfig(settings=probe), device)
@@ -668,6 +639,7 @@ def phase_cli(device):
     from PIL import Image
 
     from gsjax_torch import render as render_cli
+    from gsjax_torch.bench_scene import toy_state
     from gsjax_torch.configs import ModelParams, save_cfg_args
     from gsjax_torch.models.gaussians import save_gaussian_ply
 
@@ -703,6 +675,114 @@ def phase_cli(device):
         log(f"  wrote {pngs} ({img.shape}, mean {img.mean():.2f})")
 
 
+def phase_probe(tile_starts):
+    """``sol_probe`` against its plain version at each frame's
+    ``tile_start`` for every swept (k_ops, k_exp), the exp instances under
+    both coefficient sets, then its times at the last frame's (the 1080p
+    one), whose exp passes must cost alike. Returns ``(max |kernel -
+    plain|, {config: (ms, plain ms, bound ms, bound by)})``."""
+    import torch
+
+    from gsjax_torch.ops.cuda_probe import (
+        PROBE_EXP, SWEPT, check_exp_coefs, sol_probe, sol_probe_inputs, sol_probe_plain,
+    )
+    from gsjax_torch.utils.profiling import bound_ms, sol_probe_work
+
+    log("phase 8: sol_probe against its plain version")
+    worst = 0.0
+    for tag, ts in tile_starts.items():
+        ts = ts.contiguous()
+        table = sol_probe_inputs(ts, seed=0)
+        for k in SWEPT:
+            coef_sets = [("probe", PROBE_EXP)]
+            if k[1]:
+                coef_sets.append(("check", check_exp_coefs(k[0])))
+            for cname, coefs in coef_sets:
+                got = sol_probe(ts, table, *k, coefs)
+                want = sol_probe_plain(ts, table, *k, coefs)
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"sol_probe {tag} {k} {cname}: non-finite output")
+                diff = (got - want).abs()
+                rel = float((diff / want.abs().clamp_min(1e-30)).max())
+                worst = max(worst, float(diff.max()))
+                log(f"  {tag} (k_ops, k_exp) {k}, {cname} coefficients: max |diff| "
+                    f"{float(diff.max()):.3e}, max relative {rel:.3e} (out max "
+                    f"{float(want.abs().max()):.1f})")
+                if rel > PROBE_RTOL:
+                    raise AssertionError(f"sol_probe {tag} {k} {cname}: relative error "
+                                         f"{rel:.3e} > {PROBE_RTOL}")
+    times = {}
+    for k in SWEPT:
+        ms = time_cuda(lambda: sol_probe(ts, table, *k), 10)
+        plain = time_cuda(lambda: sol_probe_plain(ts, table, *k), 2)
+        bytes_, ops, elements = sol_probe_work(ts, *k)
+        bound, by = bound_ms(bytes_, ops)
+        times[k] = (ms, plain, bound, by)
+        log(f"  {tag} {k}: kernel {ms:.4f} ms, plain {plain:.3f} ms; {elements} elements, "
+            f"{ops} float32 ops, {bytes_} bytes -> bound {bound:.4f} ms ({by})")
+    e5, e10 = (times[(20, e)][0] - times[(20, 0)][0] for e in (5, 10))
+    ratio = e10 / (2 * e5)
+    log(f"  exp passes: 5 take {e5:.4f} ms, 10 take {e10:.4f} ms; linearity {ratio:.4f}")
+    if abs(ratio - 1) > EXP_LINEAR_TOL:
+        raise AssertionError(f"sol_probe: 10 exp passes take {ratio:.4f} x twice 5's")
+    return worst, times
+
+
+def run_module(phase, args):
+    """``python -m <args>`` from the checkout, its output echoed; raises
+    unless it exits 0. Returns its standard output's lines."""
+    import torch
+
+    torch.cuda.empty_cache()  # the subprocess shares the card
+    cmd = [sys.executable, "-m", *args]
+    log(f"phase {phase}: {' '.join(cmd[2:])}")
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=SUBPROCESS_TIMEOUT_S)
+    for line in res.stderr.splitlines()[-40:]:
+        log(f"  | {line}")
+    lines = res.stdout.splitlines()
+    for line in lines:
+        log(f"  > {line}")
+    log(f"  exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0:
+        raise AssertionError(f"{args[0]} exited {res.returncode}")
+    return lines
+
+
+def phase_probes():
+    """The measurement path: gsjax_torch.probes with --out. Returns the
+    launch counts of its run (its last line)."""
+    lines = run_module(9, ["gsjax_torch.probes", "--stages",
+                           "gather,sort,phases,bwdsplit,vpu,vpux", "--out"])
+    done = json.loads(lines[-1])
+    if done.get("stage") != "done":
+        raise AssertionError(f"probes: last line {lines[-1]!r}")
+    return done["launches"]
+
+
+def phase_bench():
+    """gsjax_torch.bench --roofline: one JSON line with a positive frame
+    rate, a passed cross-check, no dropped pair, a roofline fraction that
+    a card can reach and the probes' ceilings."""
+    result = json.loads(run_module(10, ["gsjax_torch.bench", "--roofline"])[-1])
+    ex = result["extra"]
+    checks = {
+        "value > 0": (result["value"] or 0) > 0,
+        "cross-check passed": isinstance(ex["backend_xcheck_max_diff"], float)
+        and ex["backend_xcheck_max_diff"] <= MAX_TOL,
+        "num_dropped == 0": ex["num_dropped"] == 0,
+        "0 < roofline_frac <= 1": 0 < ex["roofline_frac"] <= 1,
+        "roofline_ref from the probes": isinstance(ex["roofline_ref"], dict),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench: {failed}")
+    log(f"  bench: {result['value']} frames/s, fwd+bwd {ex['fwd_bwd_frames_per_s']}, train "
+        f"{ex['train_iters_per_s']} it/s, cross-check {ex['backend_xcheck_max_diff']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -719,12 +799,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the gsjax_torch package is missing ({e})", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    from gsjax_torch.utils.profiling import card
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
+    smi = card()
     log(f"phase 1: card {smi}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -734,16 +812,33 @@ def main() -> int:
     log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     device = "cuda"
-    errs512 = phase_compare(device)
-    entries, state, rcams, settings = main_path(device)
+    errs512, ts512 = phase_compare(device)
+    entries, state, rcams, settings, ts1080 = main_path(device)
     launches = train_path(device, state, rcams, settings)
-    for entry, err512, n_launch in zip(entries, errs512, (None,) + launches[1:]):
-        entry["max_abs_err"] = max(entry["max_abs_err"], err512)
+    for e, err512, n_launch in zip(entries, errs512, (None,) + launches[1:]):
+        e["max_abs_err"] = max(e["max_abs_err"], err512)
         if n_launch is not None:
-            entry["launches"] = n_launch
+            e["launches"] = n_launch
     del state
     phase_scan_vs_kernel(device)
     phase_cli(device)
+
+    probe_err, probe_times = phase_probe({"entry512": ts512, "bench1080": ts1080})
+    probe_launches = phase_probes()
+    if probe_launches["sol_probe"] == 0:
+        raise AssertionError(f"the probe path launched no sol_probe: {probe_launches}")
+    ms, plain, bound, by = probe_times[(40, 0)]  # the slope's heaviest configuration
+    entries.append({
+        "name": "sol_probe", "route": "cuda", "source": "gsjax_torch/csrc/sol_probe.cu",
+        "replaces": "scripts/_r4_session.py:321, scripts/_r5_session.py:327",
+        "launches": probe_launches["sol_probe"], "max_abs_err": probe_err,
+        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+        "library_ms": None,  # no single PyTorch call computes this
+        "configs": {f"k_ops={k[0]},k_exp={k[1]}": {"ms": t[0], "plain_ms": t[1],
+                                                   "bound_ms": t[2], "bound_by": t[3]}
+                    for k, t in probe_times.items()},
+    })
+    phase_bench()
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -26,9 +26,11 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
 - :class:`CompositeFunction` / :func:`composite`, the differentiable
   compositor (gsjax's ``_composite_vjp``): ``composite_fwd`` forward,
   ``composite_bwd`` plus the reduction backward.
-- :func:`load_library`, which builds each kernel with ``nvcc`` for
-  ``sm_90a`` at first use into ``build/gsjax_torch/`` (one ``nvcc`` per
-  source, all started together) and loads them with ``ctypes``.
+- :func:`load_library`, which builds each kernel of ``SOURCES`` (these
+  three and the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe`)
+  with ``nvcc`` for ``sm_90a`` at first use into ``build/gsjax_torch/``
+  (one ``nvcc`` per source, all started together) and loads them with
+  ``ctypes``.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -68,6 +70,9 @@ SOURCES = {
     "composite_infer.cu": ("gsjax_composite_infer", [_P] * 5 + [_I] * 2 + [_P]),
     "composite_fwd.cu": ("gsjax_composite_fwd", [_P] * 6 + [_I] * 2 + [_P]),
     "composite_bwd.cu": ("gsjax_composite_bwd", [_P] * 8 + [_I] * 2 + [_P]),
+    # the speed-of-light probe (ops/cuda_probe.py)
+    "sol_probe.cu": ("gsjax_sol_probe",
+                     [_P] * 3 + [_I] * 4 + [ctypes.POINTER(ctypes.c_float), _P]),
 }
 HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (

@@ -16,6 +16,7 @@ import torch
 from gsjax_torch.data.cameras import Camera
 from gsjax_torch.ops import RasterizeSettings, render
 from gsjax_torch.ops import cuda_composite as cc
+from gsjax_torch.ops import cuda_probe as cp
 from gsjax_torch.ops.binning import build_tile_bins
 from gsjax_torch.ops.projection import num_tiles, preprocess
 
@@ -233,6 +234,42 @@ def test_autograd_path_launches_the_training_kernels():
         render(_camera(80, 48, dev), *(torch.from_numpy(g).to(dev) for g in gs), 3,
                torch.zeros(3, device=dev), s)
     assert counts() == (before[0] + 1, before[1], before[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [(4, 0), (40, 0), (20, 0), (20, 5), (20, 10)],
+                         ids=["k4", "k40", "f20e0", "f20e5", "f20e10"])
+def test_sol_probe_matches_plain_version(k):
+    """The speed-of-light probe against its plain version: relative 2e-5
+    (one FMA against two roundings, and another order of the lane sum;
+    measured 1.9e-6 at the 1080p bench frame). Tiles: empty at an aligned
+    and at an unaligned start, 1 to 300 pairs, then 300 random ones."""
+    _check_sol_probe(k, cp.PROBE_EXP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_exp", [5, 10], ids=["f20e5", "f20e10"])
+def test_sol_probe_check_coefs_match_plain_version(k_exp):
+    """The exp instances under the check coefficients, where every pass and
+    chunk shows in the output (under the sessions' own, an exp pass forgets
+    its input and the comparison above cannot see a wrong pass count)."""
+    _check_sol_probe((20, k_exp), cp.check_exp_coefs(20))
+
+
+def _check_sol_probe(k, coefs):
+    dev = _cuda()
+    counts = np.concatenate([[0, 5, 0, 1, 127, 128, 130, 300],
+                             np.random.default_rng(0).integers(0, 700, 300)])
+    ts = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                      device=dev)
+    table = cp.sol_probe_inputs(ts, seed=3)
+    before = cp.sol_probe.launches
+    got = cp.sol_probe(ts, table, *k, coefs)
+    torch.cuda.synchronize()
+    assert cp.sol_probe.launches == before + 1
+    want = cp.sol_probe_plain(ts, table, *k, coefs)
+    assert float(want[0].abs().max()) == 0.0 and float(want[2].abs().min()) > 0.0
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
 
 
 def test_wrapper_checks_inputs():
