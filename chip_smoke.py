@@ -12,6 +12,11 @@ Phases, in order; any failure exits nonzero:
    512x512 scene and on one frame of the 1M-gaussian 1080p scene, with the
    tolerances stated below; ``composite_fwd``'s image against
    ``composite_infer``'s (bit for bit); two backward runs bit-identical;
+   the backward's check instances (``composite_bwd_counts``): each
+   pixel's count of contributing pairs against the plain version's, and
+   with the per-warp cull against without it (equal on every pixel, the
+   tables bit for bit), and at 1080p the backward's warp-level work
+   (``profiling.bwd_work``);
 4. the render path: the 1M-gaussian 1080p scene rendered through
    ``make_render_fn`` for 40 frames from 4 camera poses, launch counts
    reset just before and read just after; then per-phase and per-kernel
@@ -33,7 +38,7 @@ Phases, in order; any failure exits nonzero:
    forgets its input); its times, and the exp passes' times linear in
    their count; then the measurement path as a user
    runs it: ``python -m gsjax_torch.probes --stages
-   gather,sort,phases,bwdsplit,vpu,vpux --out`` (the probe path: its
+   gather,sort,phases,bwdsplit,bwdcull,vpu,vpux --out`` (the probe path: its
    launch counts come from its last line);
 9. ``python -m gsjax_torch.bench --roofline``: a positive frame rate, a
    passed cross-check and no dropped pair;
@@ -81,6 +86,19 @@ GRAD_P999_TOL = 1e-5
 # p99.9 of |difference| / lr (measured 4.8e-5).
 UPDATE_P999_TOL = 1e-3
 NCON_AGREE = 0.999  # n_contrib equal to the plain version's on >= 99.9% of pixels
+# The backward's per-pixel count of contributing pairs: equal to the plain
+# version's on >= NCON_AGREE of pixels (expf against torch.exp at the 1/255
+# cut), totals within 1e-4 relative, and sum |kernel - plain| over all
+# pixels at most COUNT_DIFF_MAX. Measured on an NVIDIA H100 80GB HBM3
+# (700 W): 0 at 512x512, 2 pixels at the bench frame (totals equal); the
+# limit is about 10x that. A cull or an early exit that loses
+# contributions at a gaussian's 1/255 edge passes the gradient tiers, whose
+# scale is the largest gradient; it fails this (tests/test_torch_bwd_counts.py:
+# a 3-sigma cull loses 3-6% of the contributions of the test scenes). The
+# counts with the cull must equal those without it on every pixel: the
+# same card arithmetic, so any difference is a lost contribution.
+COUNT_TOTAL_RTOL = 1e-4
+COUNT_DIFF_MAX = 32
 # sol_probe vs its plain version, relative: nvcc contracts x * a + b into
 # one FMA where torch rounds twice, and the 128 lanes are summed in another
 # order. Measured on an NVIDIA H100 80GB HBM3 (700 W): 1.9e-6 at the 1080p
@@ -150,14 +168,16 @@ GRAD_NAMES = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity", "r
 def check_train_kernels(tag, args):
     """composite_fwd and composite_bwd (with the reduction) against their
     plain versions on one frame's inputs ``args``; composite_fwd's image
-    against composite_infer's; two backward runs bit-identical. Returns
-    ``(fwd max err, bwd max normalised err, the backward's inputs,
-    contributing evaluations)``."""
+    against composite_infer's; two backward runs bit-identical; the
+    backward's per-pixel contributing counts against the plain version's,
+    and with the cull against without it.
+    Returns ``(fwd max err, bwd max normalised err, the backward's inputs,
+    contributing evaluations, the plain version's warp-level counts)``."""
     import torch
 
     from gsjax_torch.ops.cuda_composite import (
-        composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
-        composite_grads, composite_infer, reduce_pair_grads,
+        composite_bwd, composite_bwd_counts, composite_bwd_plain, composite_fwd,
+        composite_fwd_plain, composite_grads, composite_infer, reduce_pair_grads,
     )
 
     tile_start, pair_gauss, attrs, tx, ty = args
@@ -178,7 +198,7 @@ def check_train_kernels(tag, args):
     bwd = (tile_start, pair_gauss, attrs, torch.randn(kc.shape, generator=g, device=kc.device),
            torch.randn(kT.shape, generator=g, device=kc.device), kT, kn, tx, ty)
     kg = composite_bwd(*bwd)
-    pg, n_live = composite_bwd_plain(*bwd, return_evals=True)
+    pg, n_live, stats = composite_bwd_plain(*bwd, return_evals=True)
     torch.cuda.synchronize()
     err_b = max(compare_grads(f"{tag} bwd pair {nm}", kg[:, i], pg[:, i])
                 for i, nm in enumerate(GRAD_NAMES))
@@ -191,7 +211,29 @@ def check_train_kernels(tag, args):
     if not all(torch.equal(a, b) for a, b in zip(*runs)):
         raise AssertionError(f"{tag}: two backward runs differ")
     log(f"  {tag} two backward runs: per-gaussian gradients bit-identical")
-    return err_f, err_b, bwd, int(n_live.sum())
+
+    cg, counts = composite_bwd_counts(*bwd)
+    ng, n_counts = composite_bwd_counts(*bwd, cull=False)
+    torch.cuda.synchronize()
+    if not (torch.equal(cg, kg) and torch.equal(ng, kg)):
+        raise AssertionError(f"{tag}: a check instance's table differs from composite_bwd's")
+    if not torch.equal(counts, n_counts):
+        lost = int((n_counts - counts).long().sum())
+        raise AssertionError(f"{tag}: the per-warp cull lost {lost} contributions on "
+                             f"{int((counts != n_counts).sum())} pixels")
+    diff = (counts.long() - n_live).abs()
+    agree = float((diff == 0).float().mean())
+    got, want = int(counts.long().sum()), int(n_live.sum())
+    rel = abs(got - want) / max(want, 1)
+    log(f"  {tag} bwd contributing pairs per pixel: equal to the plain version's on "
+        f"{100 * agree:.4f}% of pixels ({int((diff > 0).sum())} differ, sum |diff| "
+        f"{int(diff.sum())}); total {got} (plain {want}, {rel:.3e} relative); with the cull "
+        f"equal to without it on every pixel, tables bit for bit")
+    if agree < NCON_AGREE or rel > COUNT_TOTAL_RTOL or int(diff.sum()) > COUNT_DIFF_MAX:
+        raise AssertionError(f"{tag}: the backward's contributing counts disagree (equal on "
+                             f"{agree:.5f} of pixels, sum |diff| {int(diff.sum())}, totals "
+                             f"{rel:.3e} relative)")
+    return err_f, err_b, bwd, want, stats
 
 
 def time_cuda(fn, reps):
@@ -234,7 +276,7 @@ def phase_compare(device):
     log(f"  512x512: {int(bins.num_pairs)} pairs, {int(bins.num_dropped)} dropped")
     worst = max(worst, compare("512 tile_colors", kc, pc), compare("512 tile_T", kT, pT))
     with torch.no_grad():
-        err_f, err_b, _, _ = check_train_kernels("512", args)
+        err_f, err_b, *_ = check_train_kernels("512", args)
     return (worst, err_f, err_b), bins.tile_start
 
 
@@ -259,7 +301,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     from gsjax_torch.ops.projection import num_tiles, preprocess
     from gsjax_torch.ops.rasterize import RasterizeSettings
     from gsjax_torch.train.step import TrainConfig, make_render_fn
-    from gsjax_torch.utils.profiling import composite_work
+    from gsjax_torch.utils.profiling import bwd_work, composite_work
 
     log(f"phase 4: main path, {n} gaussians at {w}x{h}")
     state = toy_state(n, capacity, log_scale=-5.2, device=device)
@@ -357,7 +399,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         plain_ms = time_cuda(lambda: composite_infer_plain(*args), 2)
 
         # the training kernels against their plain versions, and their times
-        err_f, err_b, bwd, n_live = check_train_kernels("1080p", args)
+        err_f, err_b, bwd, n_live, bwd_stats = check_train_kernels("1080p", args)
         fwd_ms = time_cuda(lambda: composite_fwd(*args), 20)
         fwd_plain_ms = time_cuda(lambda: composite_fwd_plain(*args), 2)
         bwd_ms = time_cuda(lambda: composite_bwd(*bwd), 20)
@@ -371,10 +413,12 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
 
     n_pairs = int(b.num_pairs)
     evals = int(n_eval.sum())
-    walk = int(bwd[6].to(torch.int64).sum())
+    walk = 32 * bwd_stats["steps_walked"]  # what the per-warp cull leaves
     log(f"  pairs {n_pairs} (budget {b.pair_gauss.numel()}), (pair, pixel) evaluations "
-        f"{evals} (walk without early exit: {256 * n_pairs}); backward walk {walk}, "
+        f"{evals} (walk without early exit: {256 * n_pairs}); backward walk "
+        f"{int(bwd[6].to(torch.int64).sum())} to n_contrib, {walk} after the cull, "
         f"contributing {n_live}")
+    log(f"  backward warp-level work: {json.dumps(bwd_work(bwd_stats))}")
     work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, evals, walk, n_live)
     entries = [
         entry(name, f"gsjax/ops/pallas_composite.py:{line}", launches_, err_, ms, plain,
@@ -755,7 +799,7 @@ def phase_probes():
     """The measurement path: gsjax_torch.probes with --out. Returns the
     launch counts of its run (its last line)."""
     lines = run_module(9, ["gsjax_torch.probes", "--stages",
-                           "gather,sort,phases,bwdsplit,vpu,vpux", "--out"])
+                           "gather,sort,phases,bwdsplit,bwdcull,vpu,vpux", "--out"])
     done = json.loads(lines[-1])
     if done.get("stage") != "done":
         raise AssertionError(f"probes: last line {lines[-1]!r}")

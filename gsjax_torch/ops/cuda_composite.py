@@ -19,6 +19,12 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   :func:`composite_bwd`     ``composite_bwd.cu``        ``_composite_bwd_kernel``
   ========================  ==========================  ==============================
 
+  :func:`composite_bwd_counts` launches the backward kernel's two check
+  instances, which also write each pixel's count of contributing pairs
+  (with and without the per-warp cull); nothing on the training path
+  calls it. :func:`footprint_box_plain` mirrors the backward kernel's
+  per-warp cull.
+
 - :func:`reduce_pair_grads`, plain torch: per-pair gradients summed to
   per-gaussian ones in a fixed order (the XLA reduction of gsjax's
   ``composite_pallas_grads``), and :func:`composite_grads`, the two
@@ -59,20 +65,25 @@ PIX = TILE * TILE
 ATTR_W = 8  # float32 words per gaussian row
 GRAD_W = 9  # per-pair gradients: mean x/y, conic a/b/c, opacity, r/g/b
 PLAIN_CHUNK = 32  # pairs per round of the plain versions' scans
+NWARP = PIX // 32  # warps of a tile's block; warp w holds pixel rows 2w, 2w + 1
+# csrc/composite_bwd.cu: pairs staged per batch, pairs per warp reduce-scatter
+BWD_BATCH = 64
+BWD_GROUP = 8
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_REPO_ROOT, "gsjax_torch", "csrc")
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gsjax_torch")
-# source -> (exported function, its ctypes argument types); one shared
+# source -> {exported function: its ctypes argument types}; one shared
 # library per source
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
-    "composite_infer.cu": ("gsjax_composite_infer", [_P] * 5 + [_I] * 2 + [_P]),
-    "composite_fwd.cu": ("gsjax_composite_fwd", [_P] * 6 + [_I] * 2 + [_P]),
-    "composite_bwd.cu": ("gsjax_composite_bwd", [_P] * 8 + [_I] * 2 + [_P]),
+    "composite_infer.cu": {"gsjax_composite_infer": [_P] * 5 + [_I] * 2 + [_P]},
+    "composite_fwd.cu": {"gsjax_composite_fwd": [_P] * 6 + [_I] * 2 + [_P]},
+    "composite_bwd.cu": {"gsjax_composite_bwd": [_P] * 8 + [_I] * 2 + [_P],
+                         "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 3 + [_P]},
     # the speed-of-light probe (ops/cuda_probe.py)
-    "sol_probe.cu": ("gsjax_sol_probe",
-                     [_P] * 3 + [_I] * 4 + [ctypes.POINTER(ctypes.c_float), _P]),
+    "sol_probe.cu": {"gsjax_sol_probe":
+                     [_P] * 3 + [_I] * 4 + [ctypes.POINTER(ctypes.c_float), _P]},
 }
 HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (
@@ -138,11 +149,12 @@ def load_library(verbose: bool = False) -> types.SimpleNamespace:
         if _lib is None:
             fns = {}
             for src, path in build_library(verbose).items():
-                name, argtypes = SOURCES[src]
-                fn = getattr(ctypes.CDLL(path), name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[name] = fn
+                lib = ctypes.CDLL(path)
+                for name, argtypes in SOURCES[src].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
             _lib = types.SimpleNamespace(**fns)
         return _lib
 
@@ -349,7 +361,8 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
     the suffix product of (1 - a), and S the carried S plus the exclusive
     suffix sum — the kernel's sequential replay up to float reassociation.
     Returns the (P, 9) table; with ``return_evals`` also the (T, 256)
-    count of contributing (pair, pixel) evaluations."""
+    count of contributing (pair, pixel) evaluations and the kernel's
+    warp-level work (:func:`_bwd_warp_stats`)."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     num_tiles = tiles_x * tiles_y
     dev = gauss_attrs.device
@@ -357,15 +370,26 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
     n_pairs = pair_gauss.shape[0]
     out = torch.zeros((n_pairs, GRAD_W), dtype=torch.float32, device=dev)
     n_live = torch.zeros((num_tiles, PIX), dtype=torch.int64, device=dev)
+    ncon = n_contrib.to(torch.int64)
+    maxn = ncon.amax(1) if num_tiles else ncon.new_zeros((0,))  # (T,)
+    n_batch = max(1, -(-int(maxn.max()) // BWD_BATCH)) if num_tiles else 1
+    # (pair, warp) steps with a contributing lane, per tile, warp and batch
+    live_steps = torch.zeros((num_tiles, NWARP, n_batch), dtype=torch.int64, device=dev)
     if num_tiles == 0 or n_pairs == 0:
-        return (out, n_live) if return_evals else out
+        if return_evals:
+            return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps)
+        return out
     means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)
     px, py = pix[:, :, None, 0], pix[:, :, None, 1]
     start = tile_start[:num_tiles].to(torch.int64)
-    ncon = n_contrib.to(torch.int64)
-    maxn = ncon.amax(1)  # (T,)
     n_rounds = -(-int(maxn.max()) // PLAIN_CHUNK)
+    if return_evals:  # the kernel's per-warp cull: boxes, strips, replay bounds
+        boxes = footprint_box_plain(means2d, conics, opacities)
+        x0 = pix[:, 0, 0][:, None]  # (T, 1): the strips' first column
+        y0 = pix[:, 0, 1][:, None] + 2 * torch.arange(NWARP, device=dev)  # (T, 8)
+        wmax = ncon.view(num_tiles, NWARP, 32).amax(2)  # (T, 8)
+        steps_walked = 0
     k_local = torch.arange(PLAIN_CHUNK, dtype=torch.int64, device=dev)
     V = d_tile_colors[:, :, None, :]  # (T, 256, 1, 3)
     tn_u = (final_T * d_tile_T)[..., None]
@@ -410,9 +434,82 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
         ], dim=-1)  # (T, K, 9)
         out[idx[in_range]] = grads[in_range]
         n_live += contrib.sum(-1)
+        if return_evals:  # the kernel's batches run from maxn down in steps of BWD_BATCH
+            batch = torch.div(maxn[:, None] - 1 - off[None, :], BWD_BATCH,
+                              rounding_mode="floor").clamp(0, n_batch - 1)
+            live_w = contrib.view(num_tiles, NWARP, 32, PLAIN_CHUNK).any(2)
+            live_steps.scatter_add_(2, batch[:, None, :].expand(-1, NWARP, -1),
+                                    live_w.to(torch.int64))
+            bx = boxes[g][:, None]  # (T, 1, K, 4)
+            walked = ((bx[..., 0] <= x0[..., None] + (TILE - 1)) & (bx[..., 1] >= x0[..., None])
+                      & (bx[..., 2] <= y0[..., None] + 1) & (bx[..., 3] >= y0[..., None])
+                      & (off < wmax[..., None]) & in_range[:, None, :])
+            steps_walked += int(walked.sum())
         T_c = T_c / suffix[..., 0]
         S = S + q.sum(-1)
-    return (out, n_live) if return_evals else out
+    if return_evals:
+        return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, steps_walked)
+    return out
+
+
+def footprint_box_plain(means2d, conics, opacities):
+    """(N, 4) float32 boxes (x lo, x hi, y lo, y hi), each holding every
+    pixel its gaussian can contribute to: ``footprint_box`` of
+    ``csrc/composite_bwd.cu``, line for line in float32 (see there for the
+    bound and its margins). Empty (lo = +inf, hi = -inf) below opacity
+    1/255; the full plane when anything is non-finite, the conic is not
+    positive definite or the box is wider than 1e5 pixels."""
+    mx, my = means2d[:, 0].float(), means2d[:, 1].float()
+    a, b, c = (conics[:, i].float() for i in range(3))
+    op = opacities.float()
+    inf = float("inf")
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(a) & torch.isfinite(b)
+              & torch.isfinite(c) & torch.isfinite(op))
+    visible = op >= ALPHA_MIN
+    det = a * c - b * b
+    pos_def = (a > 0.0) & (c > 0.0) & (det > 0.0)
+    tau = torch.clamp_min(torch.log(255.0 * op), 0.0)
+    widen = 1.001 + 4e-6 * (a * c / det)
+    tau2 = 2.0 * tau * widen + 1e-5
+    hx = torch.sqrt(tau2 * c / det) + 1.0
+    hy = torch.sqrt(tau2 * a / det) + 1.0
+    small = (hx < 1e5) & (hy < 1e5) & (mx.abs() < 1e5) & (my.abs() < 1e5)
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], 1)
+    full = torch.tensor([-inf, inf, -inf, inf], device=box.device)
+    empty = torch.tensor([inf, -inf, inf, -inf], device=box.device)
+    box = torch.where((pos_def & small)[:, None], box, full)
+    box = torch.where(visible[:, None], box, empty)
+    return torch.where(finite[:, None], box, full)
+
+
+def _bwd_warp_stats(ncon, maxn, live_steps, steps_walked=0):
+    """The backward kernel's warp-level work on these inputs, in (pair,
+    warp) steps — one warp evaluating one pair for its 32 pixels:
+
+    - ``steps_tile_bound``: every warp replays to its tile's largest
+      ``n_contrib`` (the sum over tiles of 8 maxn);
+    - ``steps_warp_bound``: each warp replays to its own largest (the sum
+      over warps of wmax);
+    - ``steps_walked``: of those, the steps whose pair's box
+      (:func:`footprint_box_plain`) meets the warp's 16x2 strip — the
+      steps the kernel walks after its per-warp cull;
+    - ``steps_contrib``: steps in which at least one lane contributes;
+    - ``reductions``: warp reduce-scatters, each warp filling
+      ``BWD_GROUP`` slots with such steps per batch of ``BWD_BATCH``
+      pairs, so per (tile, warp, batch) the ceiling of its steps over
+      ``BWD_GROUP``;
+    - ``maxn``: the (T,) int64 per-tile largest ``n_contrib``."""
+    num_tiles = ncon.shape[0]
+    wmax = ncon.view(num_tiles, NWARP, 32).amax(2) if num_tiles else ncon.new_zeros((0,))
+    return {
+        "steps_tile_bound": NWARP * int(maxn.sum()),
+        "steps_warp_bound": int(wmax.sum()),
+        "steps_walked": steps_walked,
+        "steps_contrib": int(live_steps.sum()),
+        "reductions": int(torch.div(live_steps + BWD_GROUP - 1, BWD_GROUP,
+                                    rounding_mode="floor").sum()),
+        "maxn": maxn,
+    }
 
 
 def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
@@ -445,6 +542,40 @@ def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, 
 
 
 composite_bwd.launches = 0
+
+
+def composite_bwd_counts(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
+                         final_T, n_contrib, tiles_x: int, tiles_y: int, cull: bool = True):
+    """The backward kernel's check instances, never on the training path:
+    :func:`composite_bwd`'s instance (``cull``) or the same without its
+    per-warp cull, each also writing every pixel's count of contributing
+    pairs — the exact check that no contribution was lost. Returns the
+    (P, 9) table and the (T, 256) int32 counts. CUDA tensors launch the
+    kernel (counted in ``composite_bwd_counts.launches``, not in
+    ``composite_bwd.launches``); CPU tensors take
+    :func:`composite_bwd_plain` (its ``n_live`` as the counts)."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    dev = gauss_attrs.device
+    args = (tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
+            n_contrib, tiles_x, tiles_y)
+    if dev.type == "cpu":
+        out, n_live, _ = composite_bwd_plain(*args, return_evals=True)
+        return out, n_live.to(torch.int32)
+    _cuda_device("composite_bwd_counts", dev)
+    num_tiles = tiles_x * tiles_y
+    _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
+    ins = [x.contiguous() for x in args[:7]]
+    pair_grads = torch.zeros((pair_gauss.shape[0], GRAD_W), dtype=torch.float32, device=dev)
+    counts = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("composite_bwd_counts", load_library().gsjax_composite_bwd_counts,
+                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), counts.data_ptr(),
+                num_tiles, tiles_x, int(bool(cull)))
+    composite_bwd_counts.launches += 1
+    return pair_grads, counts
+
+
+composite_bwd_counts.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -37,6 +37,16 @@ that no pair is dropped (the sessions' 16 drops 16,838). Stages:
   gather into that order, and ``bincount`` + ``segment_reduce``. gsjax's
   blocked cumsum and boundary gather have no counterpart in the port's
   reduction; their lines say so.
+- ``bwdwork`` (no gsjax counterpart): the backward kernel's work at the
+  bench frame, counted by its plain version (``profiling.bwd_work``):
+  (pair, warp) steps under the tile's and the warp's replay bound and
+  after the per-warp cull, steps with a contributing lane, reduce-scatters
+  and shuffles per group size, the per-tile ``n_contrib`` tail. Times
+  nothing.
+- ``bwdcull`` (no gsjax counterpart): what the backward kernel's per-warp
+  cull is worth at the bench frame: ``composite_bwd`` and its two check
+  instances (``composite_bwd_counts``, which also count each pixel's
+  contributing pairs) with and without the cull, ms each.
 - ``vpu`` (``_r4_session.py:281-394``) and ``vpux``
   (``_r5_session.py:292-413``): the speed-of-light probe
   (``ops/cuda_probe.sol_probe``) at (k_ops, k_exp) = (4, 0), (40, 0) and
@@ -63,7 +73,8 @@ import json
 import os
 import sys
 
-STAGES = ("gather", "sort", "phases", "expand", "snug", "bwdsplit", "vpu", "vpux")
+STAGES = ("gather", "sort", "phases", "expand", "snug", "bwdsplit", "bwdwork", "bwdcull",
+          "vpu", "vpux")
 MP = 3_538_944  # the bench's snug budget
 MT = 128  # tiles per gaussian: drop-free at the bench scene
 WIDTH, HEIGHT = 1920, 1080
@@ -168,23 +179,35 @@ def stage_phases(scene):
     return ph
 
 
-def stage_bwdsplit(timed, scene):
+def _bwd_frame(scene):
+    """The backward kernel's inputs at the bench frame: the forward's
+    final T and n_contrib, seeded normal cotangents."""
     import torch
 
-    from gsjax_torch.ops.cuda_composite import composite_bwd, composite_fwd, reduce_pair_grads
+    from gsjax_torch.ops.cuda_composite import composite_fwd
     from gsjax_torch.utils.profiling import state_frame_inputs
 
     state, rcam, _ = scene
-    args, bins = state_frame_inputs(state, rcam, _settings())
+    args, _ = state_frame_inputs(state, rcam, _settings())
     tile_start, pair_gauss, attrs, tx, ty = args
     _, tT, ncon = composite_fwd(*args)
+    g = torch.Generator(device=attrs.device).manual_seed(0)
+    d_colors = torch.randn((tx * ty, 256, 3), generator=g, device=attrs.device)
+    d_T = torch.randn((tx * ty, 256), generator=g, device=attrs.device)
+    return (tile_start, pair_gauss, attrs, d_colors, d_T, tT, ncon, tx, ty)
+
+
+def stage_bwdsplit(timed, scene):
+    import torch
+
+    from gsjax_torch.ops.cuda_composite import composite_bwd, reduce_pair_grads
+
+    bwd_inputs = _bwd_frame(scene)
+    tile_start, pair_gauss, attrs = bwd_inputs[:3]
     n_gauss = attrs.shape[0]
-    d_colors = torch.ones((tx * ty, 256, 3), device=attrs.device)
-    d_T = torch.zeros((tx * ty, 256), device=attrs.device)
 
     def bwd(eps):
-        return composite_bwd(tile_start, pair_gauss, attrs, d_colors + eps, d_T, tT, ncon,
-                             tx, ty)
+        return composite_bwd(*bwd_inputs)
 
     def bwd_full(eps):
         return reduce_pair_grads(bwd(eps), pair_gauss, tile_start, n_gauss)
@@ -222,6 +245,31 @@ def stage_bwdsplit(timed, scene):
                      "and a boundary gather; the port sums each gaussian's rows with "
                      "segment_reduce"})
     ms["pairs"] = num_valid
+    return ms
+
+
+def stage_bwdwork(scene):
+    from gsjax_torch.ops.cuda_composite import composite_bwd_plain
+    from gsjax_torch.utils.profiling import bwd_work
+
+    bwd = _bwd_frame(scene)
+    _, n_live, stats = composite_bwd_plain(*bwd, return_evals=True)
+    work = bwd_work(stats)
+    log({"stage": "bwdwork", "walk_pixel_steps": int(bwd[6].long().sum()),
+         "contrib_pixel_steps": int(n_live.sum()), **work})
+    return work
+
+
+def stage_bwdcull(timed, scene):
+    from gsjax_torch.ops.cuda_composite import composite_bwd, composite_bwd_counts
+
+    bwd = _bwd_frame(scene)
+    ms = {"composite_bwd": timed(lambda eps: composite_bwd(*bwd)) * 1e3}
+    for cull in (True, False):
+        ms[f"counts_cull_{int(cull)}"] = timed(
+            lambda eps, _c=cull: composite_bwd_counts(*bwd, cull=_c)) * 1e3
+    for cfg, v in ms.items():
+        log({"stage": "bwdcull", "cfg": cfg, "ms": v})
     return ms
 
 
@@ -284,7 +332,8 @@ def run(stages, out: bool, device) -> int:
          "card": smi})
     state, cam = toy_scene(*SCENE, WIDTH, HEIGHT, log_scale=-5.2, device=device)
     scene = (state, cam.to_render_camera(device), torch.zeros(3, device=device))
-    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd, cp.sol_probe)
+    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd,
+               cc.composite_bwd_counts, cp.sol_probe)
     for k in kernels:
         k.launches = 0
 
@@ -308,6 +357,10 @@ def run(stages, out: bool, device) -> int:
         ), timed, scene)
     if "bwdsplit" in stages:
         ceilings["bwdsplit_ms"] = stage_bwdsplit(timed, scene)
+    if "bwdwork" in stages:
+        ceilings["bwd_work"] = stage_bwdwork(scene)
+    if "bwdcull" in stages:
+        ceilings["bwdcull_ms"] = stage_bwdcull(timed, scene)
     if "vpu" in stages or "vpux" in stages:
         (tile_start, *_), _ = state_frame_inputs(scene[0], scene[1], _settings())
         inputs = (tile_start, cp.sol_probe_inputs(tile_start, seed=0))

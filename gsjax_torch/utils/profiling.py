@@ -22,7 +22,8 @@ and call signatures, so that call sites map one to one:
 The work counts live here too, so that ``chip_smoke.py``, the bench and
 ``PERF.md`` share one count: :func:`frame_inputs` and
 :func:`state_frame_inputs` (one frame's kernel inputs),
-:func:`count_evals`, :func:`composite_work`, :func:`sol_probe_work` and
+:func:`count_evals`, :func:`composite_work`, :func:`sol_probe_work`,
+:func:`bwd_work` (the backward kernel's warp-level work) and
 :func:`bound_ms`.
 
 Everything that times raises on a device that is not CUDA: a CPU time is
@@ -53,6 +54,12 @@ OPS_PER_EVAL = 16
 # pixel-sum terms and their nine adds (~40). A floor again.
 OPS_BWD_WALK = 13
 OPS_BWD_CONTRIB = 40
+# Warp shuffles of csrc/composite_bwd.cu: its reduce-scatter of 8 pairs' 9
+# sums takes 36 + 18 + 9 over the halving steps and a 2-step butterfly of
+# 9 (81); the first version took a 5-step butterfly of 9 per contributing
+# (pair, warp) step (45)
+BWD_SHUFFLES_PER_REDUCTION = 81
+BWD_SHUFFLES_PER_STEP_FIRST = 45
 # calls per phase_timings prefix: the phases are host-launch bound, so an
 # event time holds the host's gaps, and gsjax's 3 calls left the fewest
 # 2x above the host's best on the H100
@@ -280,8 +287,10 @@ def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, evals: i
     """``{kernel: (bytes, float32 operations)}`` of the three compositing
     kernels on one frame: each input read once, each output written once;
     ``evals`` forward evaluations (:func:`count_evals`), ``walk`` backward
-    evaluations (each pixel's pairs up to its ``n_contrib``) and
-    ``contrib`` contributing ones.
+    (pair, pixel) evaluations the kernel needs and ``contrib`` contributing
+    ones. The backward's walk is 32 x the (pair, warp) steps its per-warp
+    cull leaves (:func:`bwd_work`'s ``steps_walked``): a culled pair costs
+    its warp's pixels no arithmetic.
 
     gsjax's count (every started 128-pair chunk x 256 pixels x 40) models
     the TPU kernel's padded lanes and is not carried over: these kernels
@@ -312,6 +321,34 @@ def sol_probe_work(tile_start, k_ops: int, k_exp: int) -> tuple:
     n_tiles = tile_start.numel() - 1
     bytes_ = chunks * LANES * 4 + tile_start.numel() * 4 + n_tiles * 256 * 4
     return bytes_, elements * (1 + 2 * k_ops + 3 * k_exp), elements
+
+
+def bwd_work(stats: dict) -> dict:
+    """The backward kernel's warp-level work from the plain version's
+    counts (``composite_bwd_plain(..., return_evals=True)[2]``): (pair,
+    warp) steps under the tile's and the warp's replay bound and after the
+    per-warp cull, steps with a contributing lane, reduce-scatters and
+    their shuffles against the first version's (one 45-shuffle butterfly
+    per contributing step), and the tail: the per-tile largest
+    ``n_contrib`` (max, p99, mean) and the share of the tile-bound walk in
+    the deepest 1% of tiles."""
+    maxn = stats["maxn"].to(torch.float64)
+    deep = maxn.sort(descending=True).values
+    n_deep = max(1, -(-deep.numel() // 100)) if deep.numel() else 0
+    total = float(deep.sum())
+    return {
+        "steps_tile_bound": stats["steps_tile_bound"],
+        "steps_warp_bound": stats["steps_warp_bound"],
+        "steps_walked": stats["steps_walked"],
+        "steps_contrib": stats["steps_contrib"],
+        "shuffles_first_version": BWD_SHUFFLES_PER_STEP_FIRST * stats["steps_contrib"],
+        "reductions": stats["reductions"],
+        "shuffles": BWD_SHUFFLES_PER_REDUCTION * stats["reductions"],
+        "maxn_max": int(deep[0]) if deep.numel() else 0,
+        "maxn_p99": float(torch.quantile(maxn, 0.99)) if deep.numel() else 0.0,
+        "maxn_mean": float(maxn.mean()) if deep.numel() else 0.0,
+        "walk_share_deepest_1pct": float(deep[:n_deep].sum()) / total if total else 0.0,
+    }
 
 
 def bound_ms(bytes_: int, ops: int) -> tuple:

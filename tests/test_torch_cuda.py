@@ -157,6 +157,96 @@ def _bwd_inputs(args, seed=0):
     return (tile_start, pair_gauss, attrs, d_colors, d_T, tT, ncon, tx, ty)
 
 
+def direct_counts(tile_start, pair_gauss, attrs, n_contrib, tiles_x, tiles_y):
+    """The backward's contributing (pair, pixel) set counted directly in
+    numpy float32, tile by tile: a pair contributes to a pixel when its
+    local index is below the pixel's n_contrib, power <= 0 and
+    min(0.99, op exp(power)) >= 1/255. Returns ``(n_live (T, 256),
+    n_live of the same set culled to each gaussian's 3-sigma box (T, 256),
+    warp stats as cuda_composite._bwd_warp_stats)``; ``steps_walked``
+    counts the steps whose pair's :func:`footprint_box_np` meets the
+    warp's 16x2 strip."""
+    ts, pg = tile_start.cpu().numpy(), pair_gauss.cpu().numpy()
+    a = attrs.cpu().numpy()
+    halves = np.ascontiguousarray(a[:, 5:7]).view(np.float16).astype(np.float32)
+    op = halves[:, 2]  # per word the low half first: g, r, opacity, b
+    boxes = footprint_box_np(a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4], op)
+    ncon = n_contrib.cpu().numpy().astype(np.int64)
+    num_tiles = tiles_x * tiles_y
+    pix = np.arange(256)
+    n_live = np.zeros((num_tiles, 256), np.int64)
+    n_culled = np.zeros((num_tiles, 256), np.int64)
+    maxn = ncon.max(1)
+    wmax = ncon.reshape(num_tiles, 8, 32).max(2)
+    batch, group = cc.BWD_BATCH, cc.BWD_GROUP
+    steps_contrib, steps_walked, reductions = 0, 0, 0
+    for t in range(num_tiles):
+        m = int(maxn[t])
+        if m == 0:
+            continue
+        g = pg[ts[t]:ts[t] + m]
+        px = ((t % tiles_x) * 16 + pix % 16).astype(np.float32)[:, None]
+        py = ((t // tiles_x) * 16 + pix // 16).astype(np.float32)[:, None]
+        qa, qb, qc = (a[g, 2 + i][None, :] for i in range(3))
+        dx, dy = px - a[g, 0][None, :], py - a[g, 1][None, :]
+        power = np.float32(-0.5) * (qa * dx * dx + qc * dy * dy) - qb * dx * dy
+        alpha = np.minimum(np.float32(0.99), op[g][None, :] * np.exp(power))
+        live = ((np.arange(m)[None, :] < ncon[t][:, None]) & (power <= 0)
+                & (alpha >= np.float32(1.0 / 255.0)))
+        n_live[t] = live.sum(1)
+        det = qa.astype(np.float64) * qc - qb.astype(np.float64) ** 2
+        box = (np.abs(dx) <= 3 * np.sqrt(qc / det)) & (np.abs(dy) <= 3 * np.sqrt(qa / det))
+        n_culled[t] = (live & box).sum(1)
+        steps = live.reshape(8, 32, m).any(1)  # (warp, local pair)
+        bx = boxes[g]
+        x0, y0 = (t % tiles_x) * 16, (t // tiles_x) * 16 + 2 * np.arange(8)[:, None]
+        meets = ((bx[:, 0] <= x0 + 15) & (bx[:, 1] >= x0) & (bx[:, 2] <= y0 + 1)
+                 & (bx[:, 3] >= y0))  # (warp, local pair)
+        steps_walked += int((meets & (np.arange(m) < wmax[t][:, None])).sum())
+        assert not (steps & ~meets).any(), "a contributing pair outside its box"
+        bid = (m - 1 - np.arange(m)) // batch
+        per_batch = np.stack([np.bincount(bid, weights=steps[w], minlength=bid.max() + 1)
+                              for w in range(8)]).astype(np.int64)
+        steps_contrib += int(per_batch.sum())
+        reductions += int(-(-per_batch // group).sum())
+    stats = {"steps_tile_bound": 8 * int(maxn.sum()), "steps_warp_bound": int(wmax.sum()),
+             "steps_walked": steps_walked, "steps_contrib": steps_contrib,
+             "reductions": reductions, "maxn": maxn}
+    return n_live, n_culled, stats
+
+
+def footprint_box_np(mx, my, a, b, c, op):
+    """``footprint_box`` of ``csrc/composite_bwd.cu`` in numpy float32 (N, 4)."""
+    with np.errstate(all="ignore"):
+        det = a * c - b * b
+        tau = np.maximum(np.log(255.0 * op), np.float32(0.0))
+        tau2 = 2.0 * tau * (1.001 + 4e-6 * (a * c / det)) + 1e-5
+        hx = np.sqrt(tau2 * c / det) + 1.0
+        hy = np.sqrt(tau2 * a / det) + 1.0
+        box = np.stack([mx - hx, mx + hx, my - hy, my + hy], 1).astype(np.float32)
+        finite = np.isfinite(np.stack([mx, my, a, b, c, op])).all(0)
+        ok = ((a > 0) & (c > 0) & (det > 0) & (hx < 1e5) & (hy < 1e5) & (np.abs(mx) < 1e5)
+              & (np.abs(my) < 1e5))
+    full = np.array([-np.inf, np.inf, -np.inf, np.inf], np.float32)
+    box = np.where(ok[:, None], box, full)
+    box = np.where((op >= np.float32(1.0 / 255.0))[:, None], box, -full)
+    return np.where(finite[:, None], box, full)
+
+
+def count_rule_fails(got, want):
+    """The exact-count rule (chip_smoke.py): per-pixel counts equal on at
+    least 99.9% of pixels, totals within 1e-4 relative and sum |got -
+    want| at most 32. Returns the reason it fails, or None."""
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    agree = float((got == want).mean())
+    rel = abs(int(got.sum()) - int(want.sum())) / max(int(want.sum()), 1)
+    off = int(np.abs(got - want).sum())
+    if agree < 0.999 or rel > 1e-4 or off > 32:
+        return f"equal on {agree:.5f} of pixels, sum |diff| {off}, totals " \
+               f"{int(got.sum())} vs {int(want.sum())} ({rel:.2e} relative)"
+    return None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
 @pytest.mark.parametrize("size", [(64, 64), (70, 45)])
@@ -195,6 +285,42 @@ def test_bwd_kernel_matches_plain_version(dense):
     pr = cc.reduce_pair_grads(pg, args[1], args[0], n)
     for i in range(9):
         assert_norm_tiers(kr[:, i], pr[:, i], f"per-gaussian {i}")
+
+
+def assert_cull_loses_nothing(bwd):
+    """The backward's check instances on the card: with the per-warp cull
+    and without it, the same counts on every pixel and the same table bit
+    for bit, both :func:`cc.composite_bwd`'s; the counts within the
+    exact-count rule of the plain version's. Returns the counts."""
+    before = cc.composite_bwd.launches, cc.composite_bwd_counts.launches
+    kg, counts = cc.composite_bwd_counts(*bwd)
+    ng, n_counts = cc.composite_bwd_counts(*bwd, cull=False)
+    torch.cuda.synchronize()
+    assert (cc.composite_bwd.launches, cc.composite_bwd_counts.launches) == (
+        before[0], before[1] + 2)
+    assert counts.dtype == torch.int32 and counts.shape == bwd[6].shape
+    assert torch.equal(counts, n_counts)
+    assert torch.equal(kg, ng) and torch.equal(kg, cc.composite_bwd(*bwd))
+    _, n_live, _ = cc.composite_bwd_plain(*bwd, return_evals=True)
+    assert int(n_live.sum()) > 0
+    assert count_rule_fails(counts.cpu(), n_live.cpu()) is None
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+def test_bwd_count_instance_matches_plain_version(dense):
+    """The kernel's per-pixel count of contributing pairs, with and without
+    its cull, against the plain version's (the NCON_AGREE rule: expf
+    against torch.exp at the 1/255 cut), its table bit for bit the
+    training instance's; and a 3-sigma cull, counted from the same inputs,
+    fails the rule."""
+    dev = _cuda()
+    args = _inputs(_scene(300, 4, dense), 70, 45, dev)
+    bwd = _bwd_inputs(args)
+    counts = assert_cull_loses_nothing(bwd)
+    _, culled, _ = direct_counts(*bwd[:3], bwd[6], bwd[7], bwd[8])
+    assert count_rule_fails(culled, counts.cpu()) is not None
 
 
 @pytest.mark.cuda
