@@ -11,7 +11,10 @@ Phases, in order; any failure exits nonzero:
 3. each kernel against its plain PyTorch version on the 50,000-gaussian
    512x512 scene and on one frame of the 1M-gaussian 1080p scene, with the
    tolerances stated below; ``composite_fwd``'s image against
-   ``composite_infer``'s (bit for bit); two backward runs bit-identical;
+   ``composite_infer``'s, and both against the forward's check instance,
+   its walk without the per-warp cull (``composite_fwd_check``: colors, T
+   and ``n_contrib``, bit for bit), with the forward's warp-level work
+   (``profiling.fwd_work``); two backward runs bit-identical;
    the backward's check instances (``composite_bwd_counts``): each
    pixel's count of contributing pairs against the plain version's, and
    with the per-warp cull against without it (equal on every pixel, the
@@ -38,7 +41,7 @@ Phases, in order; any failure exits nonzero:
    forgets its input); its times, and the exp passes' times linear in
    their count; then the measurement path as a user
    runs it: ``python -m gsjax_torch.probes --stages
-   gather,sort,phases,bwdsplit,bwdcull,vpu,vpux --out`` (the probe path: its
+   gather,sort,phases,bwdsplit,bwdcull,fwdcull,vpu,vpux --out`` (the probe path: its
    launch counts come from its last line);
 9. ``python -m gsjax_torch.bench --roofline``: a positive frame rate, a
    passed cross-check and no dropped pair;
@@ -168,31 +171,43 @@ GRAD_NAMES = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity", "r
 def check_train_kernels(tag, args):
     """composite_fwd and composite_bwd (with the reduction) against their
     plain versions on one frame's inputs ``args``; composite_fwd's image
-    against composite_infer's; two backward runs bit-identical; the
+    against composite_infer's, and both against the forward's walk without
+    the cull (colors, T, n_contrib); two backward runs bit-identical; the
     backward's per-pixel contributing counts against the plain version's,
     and with the cull against without it.
     Returns ``(fwd max err, bwd max normalised err, the backward's inputs,
-    contributing evaluations, the plain version's warp-level counts)``."""
+    contributing evaluations, the plain version's backward warp-level
+    counts, the forward's warp-level work)``."""
     import torch
 
     from gsjax_torch.ops.cuda_composite import (
         composite_bwd, composite_bwd_counts, composite_bwd_plain, composite_fwd,
-        composite_fwd_plain, composite_grads, composite_infer, reduce_pair_grads,
+        composite_fwd_check, composite_fwd_plain, composite_grads, composite_infer,
+        reduce_pair_grads,
     )
+    from gsjax_torch.utils.profiling import fwd_work
 
     tile_start, pair_gauss, attrs, tx, ty = args
     kc, kT, kn = composite_fwd(*args)
     ic, iT = composite_infer(*args)
+    xc, xT, xn = composite_fwd_check(*args)
     pc, pT, pn = composite_fwd_plain(*args)
     torch.cuda.synchronize()
     err_f = max(compare(f"{tag} fwd tile_colors", kc, pc), compare(f"{tag} fwd tile_T", kT, pT))
     if not (torch.equal(kc, ic) and torch.equal(kT, iT)):
         raise AssertionError(f"{tag}: composite_fwd's image differs from composite_infer's")
+    if not (torch.equal(kc, xc) and torch.equal(kT, xT) and torch.equal(kn, xn)):
+        off = (kc != xc).any(-1) | (kT != xT) | (kn != xn)
+        raise AssertionError(f"{tag}: the forward's per-warp cull changed {int(off.sum())} "
+                             f"pixels (n_contrib lower on {int((kn < xn).sum())})")
     agree = float((kn == pn).float().mean())
-    log(f"  {tag} composite_fwd == composite_infer bit for bit; n_contrib equal on "
+    log(f"  {tag} composite_fwd == composite_infer == the walk without the cull "
+        f"(composite_fwd_check), bit for bit; n_contrib equal to the plain version's on "
         f"{100 * agree:.4f}% of pixels (max {int(kn.max())})")
     if agree < NCON_AGREE:
         raise AssertionError(f"{tag}: n_contrib agrees on only {agree:.5f} of pixels")
+    fw = fwd_work(*args)
+    log(f"  {tag} forward warp-level work: {json.dumps(fw)}")
 
     g = torch.Generator(device=kc.device).manual_seed(0)
     bwd = (tile_start, pair_gauss, attrs, torch.randn(kc.shape, generator=g, device=kc.device),
@@ -233,7 +248,7 @@ def check_train_kernels(tag, args):
         raise AssertionError(f"{tag}: the backward's contributing counts disagree (equal on "
                              f"{agree:.5f} of pixels, sum |diff| {int(diff.sum())}, totals "
                              f"{rel:.3e} relative)")
-    return err_f, err_b, bwd, want, stats
+    return err_f, err_b, bwd, want, stats, fw
 
 
 def time_cuda(fn, reps):
@@ -392,14 +407,14 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         args = (b.tile_start, b.pair_gauss, cache["attrs"], tx, ty)
         kc, kT = cache["out"]
         t0 = time.perf_counter()
-        pc, pT, n_eval = composite_infer_plain(*args, return_evals=True)
+        pc, pT = composite_infer_plain(*args)
         torch.cuda.synchronize()
         log(f"  plain version, first call: {1000 * (time.perf_counter() - t0):.1f} ms")
         err = max(compare("1080p tile_colors", kc, pc), compare("1080p tile_T", kT, pT))
         plain_ms = time_cuda(lambda: composite_infer_plain(*args), 2)
 
         # the training kernels against their plain versions, and their times
-        err_f, err_b, bwd, n_live, bwd_stats = check_train_kernels("1080p", args)
+        err_f, err_b, bwd, n_live, bwd_stats, fw = check_train_kernels("1080p", args)
         fwd_ms = time_cuda(lambda: composite_fwd(*args), 20)
         fwd_plain_ms = time_cuda(lambda: composite_fwd_plain(*args), 2)
         bwd_ms = time_cuda(lambda: composite_bwd(*bwd), 20)
@@ -412,14 +427,16 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         f"{reduce_ms:.3f} ms")
 
     n_pairs = int(b.num_pairs)
-    evals = int(n_eval.sum())
-    walk = 32 * bwd_stats["steps_walked"]  # what the per-warp cull leaves
-    log(f"  pairs {n_pairs} (budget {b.pair_gauss.numel()}), (pair, pixel) evaluations "
-        f"{evals} (walk without early exit: {256 * n_pairs}); backward walk "
+    fwd_walk = 32 * fw["steps_walked"]  # what the forward's per-warp cull leaves
+    walk = 32 * bwd_stats["steps_walked"]  # what the backward's per-warp cull leaves
+    log(f"  pairs {n_pairs} (budget {b.pair_gauss.numel()}), forward (pair, pixel) "
+        f"evaluations {fw['evals']} to each pixel's exit (walk without early exit: "
+        f"{256 * n_pairs}), {fwd_walk} after the cull, blends {fw['blends']}; backward walk "
         f"{int(bwd[6].to(torch.int64).sum())} to n_contrib, {walk} after the cull, "
         f"contributing {n_live}")
     log(f"  backward warp-level work: {json.dumps(bwd_work(bwd_stats))}")
-    work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, evals, walk, n_live)
+    work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, fwd_walk, fw["blends"],
+                          walk, n_live)
     entries = [
         entry(name, f"gsjax/ops/pallas_composite.py:{line}", launches_, err_, ms, plain,
               *work[name])
@@ -799,7 +816,7 @@ def phase_probes():
     """The measurement path: gsjax_torch.probes with --out. Returns the
     launch counts of its run (its last line)."""
     lines = run_module(9, ["gsjax_torch.probes", "--stages",
-                           "gather,sort,phases,bwdsplit,bwdcull,vpu,vpux", "--out"])
+                           "gather,sort,phases,bwdsplit,bwdcull,fwdcull,vpu,vpux", "--out"])
     done = json.loads(lines[-1])
     if done.get("stage") != "done":
         raise AssertionError(f"probes: last line {lines[-1]!r}")

@@ -2,6 +2,7 @@
 kernel change.
 
     python -m gsjax_torch.ab_smoke OTHER_TREE [--logs DIR]
+    python -m gsjax_torch.ab_smoke OTHER_TREE --frames N
 
 Runs ``python3 chip_smoke.py`` from the root of OTHER_TREE (``A``, the
 tree compared against, e.g. the parent commit unpacked by ``git archive
@@ -10,17 +11,24 @@ checkout (``B``) in turns, A, B, B, A: a drift of the card or the host
 shows as a difference between the two runs of one tree. Each run's
 output goes to ``DIR/<i>_<A|B>.log`` (default ``build/ab/logs`` of this
 checkout). Then one JSON line per run: the tree, exit code,
-seconds, the card's name and power limit, ``composite_bwd`` ms, the
-frame and step median and p75, the training split (one step's phases),
-the device's busy share of the traced training window, the per-kernel
-ms of the kernels line and each backward kernel instance's registers,
-shared memory and spills (``-Xptxas -v``, printed when chip_smoke
-builds a tree's kernels, so in its first run when nothing was built
-before). Last, one JSON line ``{"ab": "done", "failed": [...]}``; the
+seconds, the card's name and power limit, ``composite_bwd``,
+``composite_infer`` and ``composite_fwd`` ms, the frame and step median
+and p75, the training split (one step's phases), the device's busy share
+of the traced training window, the per-kernel ms of the kernels line and
+each backward and forward kernel instance's registers, shared memory and
+spills (``bwd_instances``, ``fwd_instances``; ``-Xptxas -v``, printed
+when chip_smoke builds a tree's kernels, so in its first run when nothing
+was built before). Last, one JSON line ``{"ab": "done", "failed": [...]}``; the
 exit code is nonzero when a run failed.
 
+With ``--frames N`` it runs ``gsjax_torch/frame_times.py`` of this
+checkout in each tree instead, A, B, B, A twice: N render frames of the
+bench scene each, so that the frame median, which chip_smoke's 40 frames
+leave to the host's noise, is compared on its own. One JSON line per run
+(the tree, exit code and the script's line), then the ``done`` line.
+
 Needs a card, as chip_smoke.py does; the runs are sequential, so one
-card serves all four. Imports neither torch nor JAX.
+card serves them all. Imports neither torch nor JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_TIMEOUT_S = 1200  # chip_smoke's own limit
 ORDER = "ABBA"
+FRAMES_SCRIPT = os.path.join(HERE, "gsjax_torch", "frame_times.py")
 
 _NUM = r"([0-9.]+)"
 PATTERNS = {
@@ -51,31 +60,38 @@ PATTERNS = {
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _USED = re.compile(r"Used (\d+) registers, .*?(\d+) bytes smem")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+# kernel families whose instances' -Xptxas -v figures are kept, by key
+_FAMILIES = {"bwd_instances": "composite_bwd_kernel", "fwd_instances": "composite_blend_kernel"}
 
 
 def parse_log(text: str) -> dict:
     """The numbers of one chip_smoke.py output (see the module's
     docstring); a key is missing when its line is."""
     out: dict = {}
-    bwd_regs = {}
-    entry = None
+    regs = {family: {} for family in _FAMILIES}
+    entry = family = None
     for line in text.splitlines():
         s = line.strip()
         m = _ENTRY.search(s)
         if m:
             entry = m.group(1)
+            family = next((k for k, fam in _FAMILIES.items() if fam in entry), None)
             continue
         m = _SPILL.search(s)
-        if m and entry and "composite_bwd" in entry:
-            bwd_regs.setdefault(entry, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        if m and family:
+            regs[family].setdefault(entry, {})["spill_bytes"] = (int(m.group(1))
+                                                                 + int(m.group(2)))
             continue
         m = _USED.search(s)
-        if m and entry and "composite_bwd" in entry:
-            bwd_regs.setdefault(entry, {}).update(registers=int(m.group(1)),
-                                                  smem_bytes=int(m.group(2)))
+        if m and family:
+            regs[family].setdefault(entry, {}).update(registers=int(m.group(1)),
+                                                      smem_bytes=int(m.group(2)))
             continue
         if s.startswith('{"kernels"'):
             out["kernels_ms"] = {k["name"]: k["ms"] for k in json.loads(s)["kernels"]}
+            for name in ("composite_infer", "composite_fwd"):
+                if name in out["kernels_ms"]:
+                    out[f"{name}_ms"] = out["kernels_ms"][name]
             continue
         for key, pat in PATTERNS.items():
             m = pat.search(s)
@@ -93,17 +109,18 @@ def parse_log(text: str) -> dict:
                 out["busy_ms"], out["window_ms"], out["busy_share"] = map(float, m.groups())
             else:
                 out[key] = float(m.group(1))
-    if bwd_regs:
-        out["bwd_instances"] = {_short(k): v for k, v in bwd_regs.items()}
+    for family, found in regs.items():
+        if found:
+            out[family] = {_short(k, _FAMILIES[family]): v for k, v in found.items()}
     return out
 
 
-def _short(mangled: str) -> str:
-    """``composite_bwd_kernel<template arguments>`` from a mangled name:
-    the template argument part as the compiler mangled it (``ILb1ELb0EE``:
-    two bools, 1 and 0)."""
-    m = re.search(r"composite_bwd_kernel(I.*?E)E", mangled)
-    return "composite_bwd_kernel" + (m.group(1) if m else "")
+def _short(mangled: str, family: str) -> str:
+    """``<family><template arguments>`` from a mangled name: the template
+    argument part as the compiler mangled it (``ILb1ELb0E``: two bools, 1
+    and 0)."""
+    m = re.search(family + r"(I.*?E)E", mangled)
+    return family + (m.group(1) if m else "")
 
 
 def run_tree(root: str, log_path: str) -> dict:
@@ -122,23 +139,40 @@ def run_tree(root: str, log_path: str) -> dict:
     return {"rc": rc, "seconds": time.perf_counter() - t0, **parse_log(text)}
 
 
+def run_frames(root: str, frames: int) -> dict:
+    """:data:`FRAMES_SCRIPT` with the tree ``root`` as working directory."""
+    res = subprocess.run([sys.executable, "-P", FRAMES_SCRIPT, str(frames)], cwd=root,
+                         capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+    lines = res.stdout.strip().splitlines()
+    rec = {"rc": res.returncode}
+    if res.returncode == 0 and lines:
+        rec.update(json.loads(lines[-1]))
+    else:
+        rec["stderr"] = res.stderr[-2000:]
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the tree compared against (A)")
     ap.add_argument("--logs", default=os.path.join(HERE, "build", "ab", "logs"),
                     help="directory for each run's output")
+    ap.add_argument("--frames", type=int, default=0,
+                    help="time N render frames in each tree instead of chip_smoke.py")
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(args.other, "chip_smoke.py")):
         print(f"ab_smoke: no chip_smoke.py in {args.other}", file=sys.stderr)
         return 2
-    os.makedirs(args.logs, exist_ok=True)
     roots = {"A": os.path.abspath(args.other), "B": HERE}
     failed = []
-    for i, tree in enumerate(ORDER):
-        log_path = os.path.join(args.logs, f"{i}_{tree}.log")
-        rec = run_tree(roots[tree], log_path)
-        print(json.dumps({"run": i, "tree": tree, "root": roots[tree], "log": log_path, **rec}),
-              flush=True)
+    for i, tree in enumerate(ORDER * 2 if args.frames else ORDER):
+        if args.frames:
+            rec = {"root": roots[tree], **run_frames(roots[tree], args.frames)}
+        else:
+            os.makedirs(args.logs, exist_ok=True)
+            log_path = os.path.join(args.logs, f"{i}_{tree}.log")
+            rec = {"root": roots[tree], "log": log_path, **run_tree(roots[tree], log_path)}
+        print(json.dumps({"run": i, "tree": tree, **rec}), flush=True)
         if rec["rc"] != 0:
             failed.append(i)
     print(json.dumps({"ab": "done", "failed": failed}), flush=True)

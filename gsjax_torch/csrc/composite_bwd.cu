@@ -94,54 +94,6 @@ constexpr int NSUM = 9;              // pixel sums per pair
 constexpr int PART_W = NSUM * NWARP + 4;  // a pair's partials, sum-major; 16-byte rows
 constexpr int GROUP = 8;             // pairs per warp reduce-scatter
 constexpr int MIN_BLOCKS = 3;        // blocks per SM: caps registers at 80
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// A box (x lo, x hi, y lo, y hi) holding every pixel that the pair (mean
-// gm.x/y, conic gm.z, gm.w, cc, opacity op) can contribute to. A pixel
-// contributes only if op e^power >= 1/255 with power = -d'Qd / 2 <= 0,
-// that is d'Qd <= 2 tau with tau = ln(255 op); on that ellipse |dx| <=
-// sqrt(2 tau c / det) and |dy| <= sqrt(2 tau a / det), det = ac - b^2.
-// The kernel's power rounds, most where the terms of d'Qd cancel: its
-// error is below ~1e-6 ac / det of |power|, so tau widens by a relative
-// 1e-3 + 4e-6 ac / det and 1e-5 (the exp and the 1/255 cut), and each
-// half-width by one pixel. Below opacity 1/255 no pixel contributes (the
-// empty box); anything non-finite, det <= 0, a <= 0, c <= 0 or a box
-// wider than 1e5 pixels gives the full plane. cuda_composite.
-// footprint_box_plain mirrors this line for line: each product and sum is
-// rounded on its own (__fmul_rn, __fadd_rn, ...), so nvcc contracts none
-// into an FMA and every operation rounds as torch's does; only logf and
-// torch.log may differ, by an ulp, far inside the 1e-3 widening.
-__device__ __forceinline__ float4 footprint_box(float4 gm, float cc, float op) {
-  const float inf = __int_as_float(0x7f800000);
-  const float4 full = make_float4(-inf, inf, -inf, inf);
-  const float a = gm.z, b = gm.w, c = cc;
-  if (!(isfinite(gm.x) && isfinite(gm.y) && isfinite(a) && isfinite(b) && isfinite(c) &&
-        isfinite(op)))
-    return full;
-  if (!(op >= ALPHA_MIN)) return make_float4(inf, -inf, inf, -inf);
-  const float det = __fsub_rn(__fmul_rn(a, c), __fmul_rn(b, b));
-  if (!(a > 0.0f && c > 0.0f && det > 0.0f)) return full;
-  const float tau = fmaxf(logf(__fmul_rn(255.0f, op)), 0.0f);
-  const float widen = __fadd_rn(1.001f, __fmul_rn(4e-6f, __fdiv_rn(__fmul_rn(a, c), det)));
-  const float tau2 = __fadd_rn(__fmul_rn(__fmul_rn(2.0f, tau), widen), 1e-5f);
-  const float hx = __fadd_rn(__fsqrt_rn(__fdiv_rn(__fmul_rn(tau2, c), det)), 1.0f);
-  const float hy = __fadd_rn(__fsqrt_rn(__fdiv_rn(__fmul_rn(tau2, a), det)), 1.0f);
-  if (!(hx < 1e5f && hy < 1e5f && fabsf(gm.x) < 1e5f && fabsf(gm.y) < 1e5f)) return full;
-  return make_float4(gm.x - hx, gm.x + hx, gm.y - hy, gm.y + hy);
-}
 
 // Reduce-scatter of v = M pairs x NSUM values over the lanes that differ
 // in bits OFF, OFF/2, ..., 1. Each halving step keeps the half of the

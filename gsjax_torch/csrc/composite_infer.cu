@@ -12,7 +12,7 @@ extern "C" int gsjax_composite_infer(const void* tile_start, const void* pair_ga
                                      void* tile_T, int num_tiles, int tiles_x,
                                      void* stream) {
   if (num_tiles > 0) {
-    gsjax::composite_blend_kernel<false>
+    gsjax::composite_blend_kernel<false, true>
         <<<num_tiles, gsjax::PIX, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const int32_t*>(tile_start), static_cast<const int32_t*>(pair_gauss),
             static_cast<const float4*>(gauss_attrs), static_cast<float*>(tile_colors),

@@ -39,7 +39,7 @@ def _tile_pixel_coords(tiles_x: int, tiles_y: int, device):
 
 
 def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
-               tiles_x: int, tiles_y: int, n_rounds: int, chunk: int):
+               tiles_x: int, tiles_y: int, n_rounds: int, chunk: int, boxes=None):
     """``n_rounds`` chunks of ``chunk`` pairs per tile, front to back.
 
     Returns ``(tile_colors (T, 256, 3), tile_T (T, 256), done (T, 256)
@@ -48,11 +48,18 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
     pair up to and including the one that trips the T < 1e-4 exit) — the
     work a kernel that walks the same pairs needs; ``n_contrib`` is the
     local index + 1 of the last pair the pixel blended (``alpha_eff > 0``),
-    0 if none — the bound of the backward's replay."""
+    0 if none — the bound of the backward's replay. ``boxes`` (N, 4) (x lo,
+    x hi, y lo, y hi), if given, culls as the CUDA kernels do: a pair is
+    skipped at the pixels of each 16x2 strip (pixel rows 2w and 2w + 1)
+    that its gaussian's box misses."""
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)  # (T, 256, 2)
     px, py = pix[:, :, None, 0], pix[:, :, None, 1]
+    if boxes is not None:  # each pixel's strip: first column x0, first row y0
+        x0 = pix[:, :1, None, 0]
+        row = torch.arange(TILE * TILE, device=dev) // TILE
+        y0 = (pix[:, :1, 1] + (row - row % 2))[..., None]
     start = tile_start[:num_tiles].to(torch.int64)
     count = tile_start[1:num_tiles + 1].to(torch.int64) - start
     k_local = torch.arange(chunk, dtype=torch.int64, device=dev)
@@ -80,6 +87,10 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
         )
         alpha = torch.clamp_max(op[:, None, :] * torch.exp(power), ALPHA_MAX)
         ok = in_range[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        if boxes is not None:
+            bx = boxes[g][:, None]  # (T, 1, K, 4)
+            ok &= ((bx[..., 0] <= x0 + (TILE - 1)) & (bx[..., 1] >= x0)
+                   & (bx[..., 2] <= y0 + 1) & (bx[..., 3] >= y0))
         alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
 
         # unfrozen cumulative product locates the early-termination trip

@@ -19,11 +19,12 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   :func:`composite_bwd`     ``composite_bwd.cu``        ``_composite_bwd_kernel``
   ========================  ==========================  ==============================
 
-  :func:`composite_bwd_counts` launches the backward kernel's two check
-  instances, which also write each pixel's count of contributing pairs
-  (with and without the per-warp cull); nothing on the training path
-  calls it. :func:`footprint_box_plain` mirrors the backward kernel's
-  per-warp cull.
+  :func:`composite_fwd_check` launches the forward kernel's walk without
+  its per-warp cull, and :func:`composite_bwd_counts` the backward
+  kernel's two check instances, which also write each pixel's count of
+  contributing pairs (with and without the per-warp cull); nothing on the
+  render or training path calls them. :func:`footprint_box_plain` mirrors
+  the kernels' per-warp cull.
 
 - :func:`reduce_pair_grads`, plain torch: per-pair gradients summed to
   per-gaussian ones in a fixed order (the XLA reduction of gsjax's
@@ -78,7 +79,8 @@ BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gsjax_torch")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "composite_infer.cu": {"gsjax_composite_infer": [_P] * 5 + [_I] * 2 + [_P]},
-    "composite_fwd.cu": {"gsjax_composite_fwd": [_P] * 6 + [_I] * 2 + [_P]},
+    "composite_fwd.cu": {"gsjax_composite_fwd": [_P] * 6 + [_I] * 2 + [_P],
+                         "gsjax_composite_fwd_check": [_P] * 6 + [_I] * 2 + [_P]},
     "composite_bwd.cu": {"gsjax_composite_bwd": [_P] * 8 + [_I] * 2 + [_P],
                          "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 3 + [_P]},
     # the speed-of-light probe (ops/cuda_probe.py)
@@ -224,16 +226,16 @@ def _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_cont
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _plain_scan(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y):
+def _plain_scan(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, boxes=None):
     """gsjax's chunked scan with no ``max_splats_per_tile`` cap — its
     number of rounds comes from the longest tile in the data, as the
-    kernels walk every pair."""
+    kernels walk every pair — and, with ``boxes``, the kernels' cull."""
     num_tiles = tiles_x * tiles_y
     longest = int((tile_start[1:] - tile_start[:num_tiles]).max()) if num_tiles else 0
     means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
     return scan_tiles(
         pair_gauss, tile_start, means2d, conics, colors, opacities,
-        tiles_x, tiles_y, -(-longest // PLAIN_CHUNK), PLAIN_CHUNK,
+        tiles_x, tiles_y, -(-longest // PLAIN_CHUNK), PLAIN_CHUNK, boxes=boxes,
     )
 
 
@@ -247,6 +249,23 @@ def _launch(name, fn, *args):
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _launch_blend(name, tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, with_ncon):
+    """Launch the forward blend's C entry ``gsjax_<name>`` on CUDA inputs:
+    returns ``(tile_colors, tile_T)``, with ``n_contrib`` if ``with_ncon``."""
+    dev = gauss_attrs.device
+    _cuda_device(name, dev)
+    num_tiles = tiles_x * tiles_y
+    ins = [x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs)]
+    outs = [torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev),
+            torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)]
+    if with_ncon:
+        outs.append(torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        _launch(name, getattr(load_library(), f"gsjax_{name}"),
+                *(x.data_ptr() for x in ins + outs), num_tiles, tiles_x)
+    return tuple(outs)
 
 
 # --------------------------------------------------------------------------
@@ -280,21 +299,12 @@ def composite_infer(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: 
     launch in ``composite_infer.launches``); CPU tensors take
     :func:`composite_infer_plain`; anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    dev = gauss_attrs.device
-    if dev.type == "cpu":
+    if gauss_attrs.device.type == "cpu":
         return composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    _cuda_device("composite_infer", dev)
-    num_tiles = tiles_x * tiles_y
-    tile_start, pair_gauss, gauss_attrs = (
-        x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs))
-    tile_colors = torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev)
-    tile_T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("composite_infer", load_library().gsjax_composite_infer,
-                tile_start.data_ptr(), pair_gauss.data_ptr(), gauss_attrs.data_ptr(),
-                tile_colors.data_ptr(), tile_T.data_ptr(), num_tiles, tiles_x)
+    out = _launch_blend("composite_infer", tile_start, pair_gauss, gauss_attrs, tiles_x,
+                        tiles_y, False)
     composite_infer.launches += 1
-    return tile_colors, tile_T
+    return out
 
 
 composite_infer.launches = 0
@@ -305,14 +315,78 @@ composite_infer.launches = 0
 # --------------------------------------------------------------------------
 
 
-def composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
+def composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int,
+                        boxes=None, return_evals: bool = False):
     """Plain PyTorch version of the training forward kernel: the uncapped
     scan, returning ``(tile_colors (T, 256, 3), tile_T (T, 256),
-    n_contrib (T, 256) int32)``."""
+    n_contrib (T, 256) int32)``. ``boxes`` (N, 4) culls each pair at the
+    16x2 strips its box misses, as the kernel does with
+    :func:`footprint_box_plain`'s boxes (the scan without them is the
+    kernel's check instance). With ``return_evals`` it also returns the
+    kernel's warp-level work (:func:`_fwd_warp_stats`)."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    tile_colors, tile_T, _, _, n_contrib = _plain_scan(
-        tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    tile_colors, tile_T, _, n_eval, n_contrib = _plain_scan(
+        tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, boxes)
+    if return_evals:
+        return tile_colors, tile_T, n_contrib, _fwd_warp_stats(
+            tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, n_eval, n_contrib)
     return tile_colors, tile_T, n_contrib
+
+
+def _fwd_warp_stats(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, n_eval, n_contrib):
+    """The forward kernels' warp-level work on these inputs, in (pair,
+    warp) steps — one warp evaluating one pair for its 32 pixels — from
+    the scan's ``n_eval`` and ``n_contrib``:
+
+    - ``steps_exit_bound``: each warp walks its tile's pairs up to its last
+      lane's exit, the pair that ends that pixel or the tile's last (the sum
+      over warps of the largest ``n_eval``): the walk without the cull;
+    - ``steps_walked``: of those, the steps whose pair's box
+      (:func:`footprint_box_plain`) meets the warp's 16x2 strip — the
+      steps the kernels evaluate after their per-warp cull (a warp whose
+      lanes are all done passes over the rest of its 32 staged slots
+      without arithmetic);
+    - ``steps_blend``: steps in which at least one lane blends;
+    - ``evals``: (pair, pixel) evaluations up to each pixel's exit;
+    - ``blends``: blended (pair, pixel): a pair passes the tests before
+      the pixel's ``n_contrib``, the backward's contributing set."""
+    num_tiles = tiles_x * tiles_y
+    dev = gauss_attrs.device
+    wmax = n_eval.view(num_tiles, NWARP, 32).amax(2)  # (T, 8)
+    stats = {"steps_exit_bound": int(wmax.sum()), "steps_walked": 0, "steps_blend": 0,
+             "evals": int(n_eval.sum()), "blends": 0}
+    n_pairs = pair_gauss.shape[0]
+    if num_tiles == 0 or n_pairs == 0:
+        return stats
+    means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
+    boxes = footprint_box_plain(means2d, conics, opacities)
+    pix = _tile_pixel_coords(tiles_x, tiles_y, dev)
+    px, py = pix[:, :, None, 0], pix[:, :, None, 1]
+    x0 = pix[:, 0, 0][:, None, None]  # (T, 1, 1): the strips' first column
+    y0 = (pix[:, 0, 1][:, None] + 2 * torch.arange(NWARP, device=dev))[..., None]  # (T, 8, 1)
+    start = tile_start[:num_tiles].to(torch.int64)
+    ncon = n_contrib.to(torch.int64)
+    k_local = torch.arange(PLAIN_CHUNK, dtype=torch.int64, device=dev)
+    for k in range(-(-int(wmax.max()) // PLAIN_CHUNK)):
+        off = k * PLAIN_CHUNK + k_local  # (K,) local pair index
+        idx = torch.clamp(start[:, None] + off[None, :], 0, n_pairs - 1)
+        g = pair_gauss[idx].to(torch.int64)  # (T, K)
+        bx = boxes[g][:, None]  # (T, 1, K, 4)
+        walked = ((bx[..., 0] <= x0 + (TILE - 1)) & (bx[..., 1] >= x0)
+                  & (bx[..., 2] <= y0 + 1) & (bx[..., 3] >= y0) & (off < wmax[..., None]))
+        mean, con, op = means2d[g], conics[g], opacities[g]
+        dx = px - mean[:, None, :, 0]  # (T, 256, K)
+        dy = py - mean[:, None, :, 1]
+        power = (
+            -0.5 * (con[:, None, :, 0] * dx * dx + con[:, None, :, 2] * dy * dy)
+            - con[:, None, :, 1] * dx * dy
+        )
+        alpha = torch.clamp_max(op[:, None, :] * torch.exp(power), ALPHA_MAX)
+        blend = (off < ncon[..., None]) & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        stats["steps_walked"] += int(walked.sum())
+        stats["steps_blend"] += int(blend.view(num_tiles, NWARP, 32, PLAIN_CHUNK).any(2).sum())
+        stats["blends"] += int(blend.sum())
+    return stats
 
 
 def composite_fwd(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
@@ -322,26 +396,36 @@ def composite_fwd(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: in
     tensors launch the kernel (counted in ``composite_fwd.launches``); CPU
     tensors take :func:`composite_fwd_plain`; anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    dev = gauss_attrs.device
-    if dev.type == "cpu":
+    if gauss_attrs.device.type == "cpu":
         return composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    _cuda_device("composite_fwd", dev)
-    num_tiles = tiles_x * tiles_y
-    tile_start, pair_gauss, gauss_attrs = (
-        x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs))
-    tile_colors = torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev)
-    tile_T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
-    n_contrib = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("composite_fwd", load_library().gsjax_composite_fwd,
-                tile_start.data_ptr(), pair_gauss.data_ptr(), gauss_attrs.data_ptr(),
-                tile_colors.data_ptr(), tile_T.data_ptr(), n_contrib.data_ptr(),
-                num_tiles, tiles_x)
+    out = _launch_blend("composite_fwd", tile_start, pair_gauss, gauss_attrs, tiles_x,
+                        tiles_y, True)
     composite_fwd.launches += 1
-    return tile_colors, tile_T, n_contrib
+    return out
 
 
 composite_fwd.launches = 0
+
+
+def composite_fwd_check(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
+    """The forward kernel's check instance, never on the render or training
+    path: :func:`composite_fwd`'s walk of every pair, without the per-warp
+    cull. Returns ``(tile_colors, tile_T, n_contrib)``; :func:`composite_fwd`
+    and :func:`composite_infer` must equal it bit for bit — the exact check
+    that the cull lost no blend. CUDA tensors launch the kernel (counted in
+    ``composite_fwd_check.launches``, not in ``composite_fwd.launches`` or
+    ``composite_infer.launches``); CPU tensors take
+    :func:`composite_fwd_plain`."""
+    _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    if gauss_attrs.device.type == "cpu":
+        return composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    out = _launch_blend("composite_fwd_check", tile_start, pair_gauss, gauss_attrs, tiles_x,
+                        tiles_y, True)
+    composite_fwd_check.launches += 1
+    return out
+
+
+composite_fwd_check.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -455,7 +539,7 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
 def footprint_box_plain(means2d, conics, opacities):
     """(N, 4) float32 boxes (x lo, x hi, y lo, y hi), each holding every
     pixel its gaussian can contribute to: ``footprint_box`` of
-    ``csrc/composite_bwd.cu``, line for line in float32 (see there for the
+    ``csrc/composite_blend.cuh``, line for line in float32 (see there for the
     bound and its margins). Empty (lo = +inf, hi = -inf) below opacity
     1/255; the full plane when anything is non-finite, the conic is not
     positive definite or the box is wider than 1e5 pixels."""

@@ -47,6 +47,15 @@ that no pair is dropped (the sessions' 16 drops 16,838). Stages:
   cull is worth at the bench frame: ``composite_bwd`` and its two check
   instances (``composite_bwd_counts``, which also count each pixel's
   contributing pairs) with and without the cull, ms each.
+- ``fwdwork`` (no gsjax counterpart): the forward kernels' work at the
+  bench frame, counted by the training forward's plain version
+  (``profiling.fwd_work``): (pair, warp) steps up to each warp's last
+  exit, after the per-warp cull and with a blending lane; (pair, pixel)
+  evaluations and blends. Times nothing.
+- ``fwdcull`` (no gsjax counterpart): what the forward kernels' per-warp
+  cull is worth at the bench frame: ``composite_infer``,
+  ``composite_fwd`` and the forward's check instance without the cull
+  (``composite_fwd_check``), ms each.
 - ``vpu`` (``_r4_session.py:281-394``) and ``vpux``
   (``_r5_session.py:292-413``): the speed-of-light probe
   (``ops/cuda_probe.sol_probe``) at (k_ops, k_exp) = (4, 0), (40, 0) and
@@ -74,7 +83,7 @@ import os
 import sys
 
 STAGES = ("gather", "sort", "phases", "expand", "snug", "bwdsplit", "bwdwork", "bwdcull",
-          "vpu", "vpux")
+          "fwdwork", "fwdcull", "vpu", "vpux")
 MP = 3_538_944  # the bench's snug budget
 MT = 128  # tiles per gaussian: drop-free at the bench scene
 WIDTH, HEIGHT = 1920, 1080
@@ -273,6 +282,32 @@ def stage_bwdcull(timed, scene):
     return ms
 
 
+def stage_fwdwork(scene):
+    from gsjax_torch.utils.profiling import fwd_work, state_frame_inputs
+
+    state, rcam, _ = scene
+    args, _ = state_frame_inputs(state, rcam, _settings())
+    work = fwd_work(*args)
+    log({"stage": "fwdwork", **work})
+    return work
+
+
+def stage_fwdcull(timed, scene):
+    from gsjax_torch.ops.cuda_composite import (
+        composite_fwd, composite_fwd_check, composite_infer,
+    )
+    from gsjax_torch.utils.profiling import state_frame_inputs
+
+    state, rcam, _ = scene
+    args, _ = state_frame_inputs(state, rcam, _settings())
+    ms = {"composite_infer": timed(lambda eps: composite_infer(*args)) * 1e3,
+          "composite_fwd": timed(lambda eps: composite_fwd(*args)) * 1e3,
+          "check_no_cull": timed(lambda eps: composite_fwd_check(*args)) * 1e3}
+    for cfg, v in ms.items():
+        log({"stage": "fwdcull", "cfg": cfg, "ms": v})
+    return ms
+
+
 def stage_probe(name, configs, timed, probe_inputs):
     from gsjax_torch.ops.cuda_probe import sol_probe
 
@@ -332,7 +367,7 @@ def run(stages, out: bool, device) -> int:
          "card": smi})
     state, cam = toy_scene(*SCENE, WIDTH, HEIGHT, log_scale=-5.2, device=device)
     scene = (state, cam.to_render_camera(device), torch.zeros(3, device=device))
-    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd,
+    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_fwd_check, cc.composite_bwd,
                cc.composite_bwd_counts, cp.sol_probe)
     for k in kernels:
         k.launches = 0
@@ -361,6 +396,10 @@ def run(stages, out: bool, device) -> int:
         ceilings["bwd_work"] = stage_bwdwork(scene)
     if "bwdcull" in stages:
         ceilings["bwdcull_ms"] = stage_bwdcull(timed, scene)
+    if "fwdwork" in stages:
+        ceilings["fwd_work"] = stage_fwdwork(scene)
+    if "fwdcull" in stages:
+        ceilings["fwdcull_ms"] = stage_fwdcull(timed, scene)
     if "vpu" in stages or "vpux" in stages:
         (tile_start, *_), _ = state_frame_inputs(scene[0], scene[1], _settings())
         inputs = (tile_start, cp.sol_probe_inputs(tile_start, seed=0))

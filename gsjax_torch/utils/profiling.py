@@ -22,8 +22,8 @@ and call signatures, so that call sites map one to one:
 The work counts live here too, so that ``chip_smoke.py``, the bench and
 ``PERF.md`` share one count: :func:`frame_inputs` and
 :func:`state_frame_inputs` (one frame's kernel inputs),
-:func:`count_evals`, :func:`composite_work`, :func:`sol_probe_work`,
-:func:`bwd_work` (the backward kernel's warp-level work) and
+:func:`fwd_work` and :func:`bwd_work` (the forward and backward kernels'
+warp-level work), :func:`composite_work`, :func:`sol_probe_work` and
 :func:`bound_ms`.
 
 Everything that times raises on a device that is not CUDA: a CPU time is
@@ -43,11 +43,14 @@ import torch
 # the tensor cores (both at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# float32 operations per evaluated (pair, pixel) of the forward kernels: dx,
-# dy (2), the quadratic form (11), the exp (1), op * exp (1), the 0.99 clamp
-# (1). The blend of a contributing pair adds ~9 more and is not counted, so
-# this is a floor.
-OPS_PER_EVAL = 16
+# Forward: every pixel of a (pair, warp) step that the per-warp cull leaves
+# tests the pair: dx, dy (2), the quadratic form (11), the exp (1), op * exp
+# (1), the 0.99 clamp (1) — the conic is positive definite, so power <= 0
+# and the exp runs wherever the box reaches; a blended (pair, pixel) adds
+# 1 - alpha, T (1 - alpha), alpha T (3) and three color multiply-adds (6).
+# The compares are not counted, so this is a floor.
+OPS_FWD_TEST = 16
+OPS_FWD_BLEND = 9
 # Backward: every (pair, pixel) up to the pixel's n_contrib needs dx, dy and
 # the quadratic form (13); a contributing one adds the exp, alpha, T rebuilt
 # by a division, w, c.V (5), dL/dalpha (5), S (2), g_pow (2), the nine
@@ -268,43 +271,49 @@ def state_frame_inputs(state, camera, settings):
                         sh_degree=state.active_sh_degree, active_mask=state.active)
 
 
-def count_evals(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int) -> int:
-    """(pair, pixel) evaluations the forward kernels' walk needs on these
-    inputs: each pixel evaluates its tile's pairs in order up to and
-    including the one that ends it (T would fall below 1e-4), or all of
-    them. Counted by the plain version (``return_evals``): a full scan of
-    the frame, seconds at 1080p on the card."""
-    from gsjax_torch.ops.cuda_composite import composite_infer_plain
+def fwd_work(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int) -> dict:
+    """The forward kernels' work on these inputs, counted by the training
+    forward's plain version (``composite_fwd_plain(..., return_evals=True)``,
+    a full scan of the frame and a second pass for the boxes: seconds at
+    1080p on the card): (pair, warp) steps up to each warp's last exit
+    without the cull (``steps_exit_bound``), after the per-warp cull
+    (``steps_walked``) and with a blending lane (``steps_blend``); (pair,
+    pixel) evaluations up to each pixel's exit (``evals``) and blends
+    (``blends``); and ``walked_share``, the steps the cull leaves."""
+    from gsjax_torch.ops.cuda_composite import composite_fwd_plain
 
     with torch.no_grad():
-        n_eval = composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x,
-                                       tiles_y, return_evals=True)[2]
-    return int(n_eval.sum())
+        stats = composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y,
+                                    return_evals=True)[3]
+    bound = stats["steps_exit_bound"]
+    return {**stats, "walked_share": stats["steps_walked"] / bound if bound else 0.0}
 
 
-def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, evals: int,
-                   walk: int = 0, contrib: int = 0) -> Dict[str, tuple]:
+def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk: int,
+                   fwd_blend: int, bwd_walk: int = 0, bwd_contrib: int = 0) -> Dict[str, tuple]:
     """``{kernel: (bytes, float32 operations)}`` of the three compositing
-    kernels on one frame: each input read once, each output written once;
-    ``evals`` forward evaluations (:func:`count_evals`), ``walk`` backward
-    (pair, pixel) evaluations the kernel needs and ``contrib`` contributing
-    ones. The backward's walk is 32 x the (pair, warp) steps its per-warp
-    cull leaves (:func:`bwd_work`'s ``steps_walked``): a culled pair costs
-    its warp's pixels no arithmetic.
+    kernels on one frame: each input read once, each output written once.
+    ``fwd_walk`` and ``bwd_walk`` are the (pair, pixel) evaluations each
+    walk needs: 32 x the (pair, warp) steps its per-warp cull leaves
+    (:func:`fwd_work`'s and :func:`bwd_work`'s ``steps_walked``), since a
+    culled pair costs its warp's pixels no arithmetic; ``fwd_blend``
+    blended and ``bwd_contrib`` contributing (pair, pixel) — the same set.
 
     gsjax's count (every started 128-pair chunk x 256 pixels x 40) models
     the TPU kernel's padded lanes and is not carried over: these kernels
-    walk pairs one at a time and stop a pixel at its exit."""
+    walk pairs one at a time, skip the pairs whose footprint misses a
+    warp's pixels and stop a warp at its last pixel's exit."""
     p = pair_gauss.numel()
     n_tiles = tiles_x * tiles_y
     common = gauss_attrs.numel() * 4 + p * 4 + (n_tiles + 1) * 4  # table, pairs, ranges
     px = n_tiles * 256 * 4  # one float32 per pixel
+    fwd_ops = fwd_walk * OPS_FWD_TEST + fwd_blend * OPS_FWD_BLEND
     return {
-        "composite_infer": (common + 4 * px, evals * OPS_PER_EVAL),  # rgb + T
-        "composite_fwd": (common + 5 * px, evals * OPS_PER_EVAL),  # + n_contrib
+        "composite_infer": (common + 4 * px, fwd_ops),  # rgb + T
+        "composite_fwd": (common + 5 * px, fwd_ops),  # + n_contrib
         # in: also d_colors (3), d_T, final_T, n_contrib per pixel; out: (P, 9)
         "composite_bwd": (common + 6 * px + p * 9 * 4,
-                          walk * OPS_BWD_WALK + contrib * OPS_BWD_CONTRIB),
+                          bwd_walk * OPS_BWD_WALK + bwd_contrib * OPS_BWD_CONTRIB),
     }
 
 
@@ -425,13 +434,14 @@ def roofline_report(
     the card's peaks (:data:`PEAK_F32_PER_S`, :data:`PEAK_BYTES_PER_S`: the
     H100 SXM data sheet's; gsjax's peak arguments are not carried over),
     with gsjax's keys: the :func:`phase_timings` keys, ``pairs``,
-    ``pair_pixels`` (the (pair, pixel) evaluations of
-    :func:`count_evals`), ``compute_gflops_achieved``,
+    ``pair_pixels`` (the (pair, pixel) evaluations up to each pixel's
+    exit, :func:`fwd_work`'s ``evals``), ``compute_gflops_achieved``,
     ``compute_roofline_frac``, ``hbm_gbps_achieved`` and
     ``hbm_roofline_frac``; and ``composite_kernel_ms``. Work is counted by
-    :func:`composite_work` for ``composite_infer`` — the evaluations the
-    kernel walks, not gsjax's count of every started 128-pair chunk x 256
-    pixels x 40, which models the TPU kernel's padded lanes — and divided
+    :func:`composite_work` for ``composite_infer`` — the walk the kernel's
+    cull leaves and its blends, not gsjax's count of every started
+    128-pair chunk x 256 pixels x 40, which models the TPU kernel's padded
+    lanes — and divided
     by that kernel's own time (``composite_kernel_ms``, CUDA events, the
     fewest of :data:`PHASE_REPS`), not by the ``composite_ms`` phase as
     gsjax does: that phase is the difference of two host-bound prefixes,
@@ -443,9 +453,10 @@ def roofline_report(
     dev = _require_cuda(means3d.device)
     args, bins = frame_inputs(means3d, scales, quats, opacities, shs, camera, settings,
                               active_mask=active_mask)
-    evals = count_evals(*args)
+    work = fwd_work(*args)
     hbm_bytes, flops = composite_work(args[1], args[2], args[3], args[4],
-                                      evals)["composite_infer"]
+                                      32 * work["steps_walked"],
+                                      work["blends"])["composite_infer"]
     phases = phase_timings(means3d, scales, quats, opacities, shs, camera, settings,
                            active_mask=active_mask)
     t_comp = timed(lambda eps: composite_infer(*args), PHASE_REPS, device=dev)
@@ -455,7 +466,7 @@ def roofline_report(
         **phases,
         "composite_kernel_ms": t_comp * 1e3,
         "pairs": int(bins.num_pairs),
-        "pair_pixels": float(evals),
+        "pair_pixels": float(work["evals"]),
         "compute_gflops_achieved": achieved,
         "compute_roofline_frac": achieved / (PEAK_F32_PER_S / 1e9),
         "hbm_gbps_achieved": gbps,

@@ -10,6 +10,14 @@ from gsjax_torch import ab_smoke
 
 LOG = """\
 phase 1: card NVIDIA H100 80GB HBM3, 700.00 W
+composite_fwd.cu:
+ptxas info    : Compiling entry function '_ZN5gsjax22composite_blend_kernelILb1ELb0EEEvPKiS2_PK6float4PfS6_Pii' for 'sm_90a'
+ptxas info    : Function properties for _ZN5gsjax22composite_blend_kernelILb1ELb0EEEvPKiS2_PK6float4PfS6_Pii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 6144 bytes smem
+ptxas info    : Compiling entry function '_ZN5gsjax22composite_blend_kernelILb1ELb1EEEvPKiS2_PK6float4PfS6_Pii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 8192 bytes smem
 composite_bwd.cu:
 ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__94bb_20composite_bwd_kernelILb1ELb0EEEvPKiS2_PK6float4PKfS7_S7_S2_PfPii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -26,7 +34,7 @@ ptxas info    : Used 254 registers, used 1 barriers, 512 bytes smem
   one step's phases, ms: preprocess+binning 11.473, forward kernel 1.496, backward kernel 2.395, Adam 3.196; sum 46.913
   trace of 4 steps: device busy 148.419 ms of a 265.746 ms window, busy share 0.5585
 total 86.3 s
-{"kernels": [{"name": "composite_bwd", "ms": 2.288}, {"name": "sol_probe", "ms": 0.33}]}
+{"kernels": [{"name": "composite_infer", "ms": 0.702}, {"name": "composite_fwd", "ms": 0.711}, {"name": "composite_bwd", "ms": 2.288}, {"name": "sol_probe", "ms": 0.33}]}
 card: NVIDIA H100 80GB HBM3, 700.00 W
 {"ok": true, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
 """
@@ -42,13 +50,22 @@ def test_parse_log_reads_every_number():
     assert got["split"] == {"preprocess+binning": 11.473, "forward kernel": 1.496,
                             "backward kernel": 2.395, "Adam": 3.196}
     assert got["total_s"] == 86.3
-    assert got["kernels_ms"] == {"composite_bwd": 2.288, "sol_probe": 0.33}
+    assert got["kernels_ms"] == {"composite_infer": 0.702, "composite_fwd": 0.711,
+                                 "composite_bwd": 2.288, "sol_probe": 0.33}
+    assert (got["composite_infer_ms"], got["composite_fwd_ms"]) == (0.702, 0.711)
     # the backward's instances only, by their template arguments
     assert got["bwd_instances"] == {
         "composite_bwd_kernelILb1ELb0E": {"registers": 79, "smem_bytes": 28164,
                                           "spill_bytes": 0},
         "composite_bwd_kernelILb0ELb1E": {"registers": 72, "smem_bytes": 26116,
                                           "spill_bytes": 12},
+    }
+    # and the forward's (composite_blend_kernel<kNcon, kCull>)
+    assert got["fwd_instances"] == {
+        "composite_blend_kernelILb1ELb0E": {"registers": 38, "smem_bytes": 6144,
+                                            "spill_bytes": 0},
+        "composite_blend_kernelILb1ELb1E": {"registers": 40, "smem_bytes": 8192,
+                                            "spill_bytes": 0},
     }
 
 
@@ -80,6 +97,27 @@ def test_runs_two_trees_in_turns(tmp_path, capsys, monkeypatch, rc):
         assert r["log"] == str(tmp_path / "logs" / f"{r['run']}_{r['tree']}.log")
         assert os.path.isfile(r["log"])
     assert lines[4] == {"ab": "done", "failed": [0, 3] if rc else []}
+
+
+def test_frames_mode_runs_the_frame_script_in_turns(tmp_path, capsys, monkeypatch):
+    """``--frames N``: this checkout's frame script in each tree (its
+    working directory), A, B, B, A twice, one line per run."""
+    _stand_in(tmp_path / "a", 3.338, 0)
+    _stand_in(tmp_path / "b", 2.288, 0)
+    script = tmp_path / "frames.py"
+    script.write_text("import json, os, sys\n"
+                      "print(json.dumps({'frames': int(sys.argv[1]), "
+                      "'median_ms': 9.1 if os.getcwd().endswith('b') else 9.5}))\n")
+    monkeypatch.setattr(ab_smoke, "HERE", str(tmp_path / "b"))
+    monkeypatch.setattr(ab_smoke, "FRAMES_SCRIPT", str(script))
+    assert ab_smoke.main([str(tmp_path / "a"), "--frames", "7"]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [r["tree"] for r in lines[:8]] == list("ABBAABBA")
+    for r in lines[:8]:
+        assert r["rc"] == 0 and r["frames"] == 7
+        assert r["median_ms"] == (9.5 if r["tree"] == "A" else 9.1)
+        assert r["root"] == str(tmp_path / ("a" if r["tree"] == "A" else "b"))
+    assert lines[8] == {"ab": "done", "failed": []}
 
 
 def test_refuses_a_tree_without_chip_smoke(tmp_path):

@@ -88,8 +88,8 @@ def test_counts_wrapper_on_cpu_takes_the_plain_version():
 
 
 # --------------------------------------------------------------------------
-# the backward kernel's per-warp cull: footprint_box_plain, the line-for-line
-# mirror of csrc/composite_bwd.cu's footprint_box
+# the kernels' per-warp cull: footprint_box_plain, the line-for-line
+# mirror of csrc/composite_blend.cuh's footprint_box
 # --------------------------------------------------------------------------
 
 _F32_MIN = np.float32(1.0 / 255.0)

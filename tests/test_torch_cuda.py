@@ -216,7 +216,7 @@ def direct_counts(tile_start, pair_gauss, attrs, n_contrib, tiles_x, tiles_y):
 
 
 def footprint_box_np(mx, my, a, b, c, op):
-    """``footprint_box`` of ``csrc/composite_bwd.cu`` in numpy float32 (N, 4)."""
+    """``footprint_box`` of ``csrc/composite_blend.cuh`` in numpy float32 (N, 4)."""
     with np.errstate(all="ignore"):
         det = a * c - b * b
         tau = np.maximum(np.log(255.0 * op), np.float32(0.0))
@@ -263,6 +263,42 @@ def test_fwd_kernel_matches_plain_version_and_infer(dense, size):
     assert kn.dtype == torch.int32 and float((kn == pn).float().mean()) >= 0.999
     ic, iT = cc.composite_infer(*args)  # the same recurrence: bit for bit
     assert torch.equal(ic, kc) and torch.equal(iT, kT)
+
+
+def assert_fwd_cull_loses_nothing(args):
+    """The forward kernels on the card against their check instance, the
+    walk of every pair without the per-warp cull: colors, T and n_contrib
+    bit for bit, for composite_fwd and composite_infer (colors and T);
+    each launch counted by its own wrapper."""
+    launches = lambda: (cc.composite_infer.launches, cc.composite_fwd.launches,  # noqa: E731
+                        cc.composite_fwd_check.launches)
+    before = launches()
+    want = cc.composite_fwd_check(*args)
+    got = cc.composite_fwd(*args)
+    ic, iT = cc.composite_infer(*args)
+    torch.cuda.synchronize()
+    assert launches() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert int(want[2].max()) > 0
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert torch.equal(ic, want[0]) and torch.equal(iT, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+@pytest.mark.parametrize("size", [(64, 64), (70, 45)])
+def test_fwd_cull_loses_nothing(dense, size):
+    assert_fwd_cull_loses_nothing(_inputs(_scene(300, 4, dense), *size, _cuda()))
+
+
+@pytest.mark.cuda
+def test_fwd_cull_loses_nothing_on_the_sweep_frame():
+    """The device's cull on the sweep's thin, wide, near-singular and
+    near-1/255 gaussians (tests/test_torch_bwd_counts.py)."""
+    from test_torch_bwd_counts import sweep_frame
+
+    with torch.no_grad():
+        assert_fwd_cull_loses_nothing(sweep_frame(_cuda()))
 
 
 @pytest.mark.cuda

@@ -93,20 +93,26 @@ def _sequential_evals(tile_start, pair_gauss, attrs, tx, ty):
 
 @pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
 def test_eval_count(dense):
-    """``count_evals`` equals the plain kernels' ``return_evals`` count and
-    a pair-by-pair count of the walk; the saturating scene stops early."""
+    """``fwd_work``'s evaluations equal the plain kernels' ``return_evals``
+    count and a pair-by-pair count of the walk; the saturating scene stops
+    early. ``composite_work`` prices the forward's walk and blends."""
     cam = make_test_camera(48, 32, seed=1)
     gs = _gaussians(120, 2, dense)
     args, bins = prof.frame_inputs(*map(torch.from_numpy, gs), t_camera(cam),
                                    TSettings(max_pairs=1 << 14))
-    n = prof.count_evals(*args)
+    fw = prof.fwd_work(*args)
+    n = fw["evals"]
     assert n == int(cc.composite_infer_plain(*args, return_evals=True)[2].sum())
     assert n == _sequential_evals(*args)
     walk_all = 256 * int(bins.num_pairs)
     assert (n < walk_all) if dense else (n == walk_all)
-    work = prof.composite_work(args[1], args[2], args[3], args[4], n, walk=n, contrib=n // 2)
+    work = prof.composite_work(args[1], args[2], args[3], args[4], 32 * fw["steps_walked"],
+                               fw["blends"], bwd_walk=n, bwd_contrib=n // 2)
     assert set(work) == {"composite_infer", "composite_fwd", "composite_bwd"}
-    assert work["composite_infer"][1] == n * prof.OPS_PER_EVAL
+    assert work["composite_infer"][1] == work["composite_fwd"][1] == (
+        32 * fw["steps_walked"] * prof.OPS_FWD_TEST + fw["blends"] * prof.OPS_FWD_BLEND)
+    assert 0 < fw["steps_blend"] <= fw["steps_walked"] <= fw["steps_exit_bound"]
+    assert fw["blends"] <= 32 * fw["steps_blend"] and n <= 32 * fw["steps_exit_bound"]
     assert work["composite_fwd"][0] == work["composite_infer"][0] + 6 * 256 * 4
     assert work["composite_bwd"][1] == n * prof.OPS_BWD_WALK + n // 2 * prof.OPS_BWD_CONTRIB
 
@@ -151,8 +157,10 @@ def test_roofline_divides_by_the_kernel_time(monkeypatch):
     monkeypatch.setattr(prof, "timed", fake_timed)
     roof = prof.roofline_report(*gs, cam, settings)
     args, bins = prof.frame_inputs(*gs, cam, settings)
+    fw = prof.fwd_work(*args)
     hbm_bytes, flops = prof.composite_work(args[1], args[2], args[3], args[4],
-                                           prof.count_evals(*args))["composite_infer"]
+                                           32 * fw["steps_walked"],
+                                           fw["blends"])["composite_infer"]
     assert len(timed_fns) == 1 and roof["composite_ms"] == -0.7
     assert roof["composite_kernel_ms"] == 2.0 and roof["pairs"] == int(bins.num_pairs)
     assert roof["compute_roofline_frac"] == pytest.approx(flops / 2e-3 / prof.PEAK_F32_PER_S)
@@ -168,7 +176,8 @@ def test_trace_on_the_cpu(tmp_path):
     assert prof.device_summary(p) is None
 
 
-@pytest.mark.parametrize("module", ["gsjax_torch.bench", "gsjax_torch.probes"])
+@pytest.mark.parametrize("module", ["gsjax_torch.bench", "gsjax_torch.probes",
+                                    "gsjax_torch.frame_times"])
 def test_measurement_entry_points_refuse_without_cuda(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")
