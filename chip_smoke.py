@@ -45,7 +45,26 @@ Phases, in order; any failure exits nonzero:
    launch counts come from its last line);
 9. ``python -m gsjax_torch.bench --roofline``: a positive frame rate, a
    passed cross-check and no dropped pair;
-10. a ``{"kernels": [...]}`` line, the card line, and last the
+10. a training run as a user runs it (logged as phase 11), each step
+    a subprocess:
+    ``python -m gsjax_torch.synthetic_scene`` writes the 250,000-gaussian,
+    120-view scene at 1296x840 (30,000 sparse points, seed 0); ``python -m
+    gsjax_torch.train -s <scene> --eval`` trains it 600 iterations through
+    densification (at 200 and 300: from 100, every 100, until 400), a
+    capacity growth (the capacity starts just above the sparse count), an
+    opacity reset at 300, evaluations at 300 and 600 and a checkpoint at
+    300; a second run
+    resumes from ``chkpnt300.npz`` for 100 iterations; ``python -m
+    gsjax_torch.render`` renders the test views of the snapshot and
+    ``python -m gsjax_torch.metrics`` scores them. It fails unless every
+    run exits 0, the log shows clones, splits, a capacity growth and the
+    reset (the checkpoint's opacities), the test PSNR at 600 beats 300's,
+    the last logged step dropped no pair, ``composite_fwd`` and
+    ``composite_bwd`` launched once per step and ``composite_infer`` once
+    per evaluated view (each run's counts are reset at its start and
+    printed on its last line). It prints it/s, the wall time, the growth
+    pause and the peak memory;
+11. a ``{"kernels": [...]}`` line, the card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or gsjax. Exits nonzero with no result when CUDA is
@@ -844,6 +863,118 @@ def phase_bench():
         f"{ex['train_iters_per_s']} it/s, cross-check {ex['backend_xcheck_max_diff']}")
 
 
+def _train_log(model):
+    with open(os.path.join(model, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _train_run(phase, scene, model, device, args):
+    """One ``python -m gsjax_torch.train`` run; returns its last line (the
+    iterations, launch counts, wall time and peak memory) and its log."""
+    lines = run_module(phase, ["gsjax_torch.train", "-s", scene, "-m", model, "--eval",
+                               "--device", device, *args])
+    done = json.loads(lines[-1])
+    if done.get("stage") != "done":
+        raise AssertionError(f"train: last line {lines[-1]!r}")
+    return done, _train_log(model)
+
+
+def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
+                          capacity=32_768, iterations=600, resume=100, phase=11):
+    """A training run as a user runs it (see the module docstring,
+    phase 10); ``device``, the size and ``scene_args`` let it run small on
+    the CPU. Returns a summary dict of its numbers."""
+    log(f"phase {phase}: training run at {width}x{height}")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene, model, model2 = (os.path.join(tmp, d) for d in ("scene", "model", "resumed"))
+        run_module(phase, ["gsjax_torch.synthetic_scene", scene, "--width", str(width),
+                           "--height", str(height), "--device", device, *scene_args])
+        half = iterations // 2
+        # densification ends before the first one after the reset: that one
+        # would add the 20-pixel screen-size prune (reference train.py:118-
+        # 119), which at this compressed schedule removes the still coarse
+        # SfM-initialised model (31,565 of 32,773 gaussians at 400 on an
+        # H100), as it would in gsjax and the reference
+        schedule = ["--densify_from_iter", str(iterations // 6),
+                    "--densification_interval", str(iterations // 6),
+                    "--densify_until_iter", str(2 * iterations // 3),
+                    "--opacity_reset_interval", str(half)]
+        done, records = _train_run(phase, scene, model, device, [
+            "--iterations", str(iterations), *schedule,
+            "--test_iterations", str(half), str(iterations),
+            "--checkpoint_iterations", str(half), "--capacity", str(capacity)])
+
+        dens = [r for r in records if r.get("event") == "densify"]
+        grows = [r for r in records if r.get("event") == "capacity_growth"]
+        evals = {r["iter"]: r["eval"] for r in records if "eval" in r}
+        progress = [r for r in records if "it_per_s" in r]
+        cloned, split = sum(r["cloned"] for r in dens), sum(r["split"] for r in dens)
+        log(f"  densify events {[(r['iter'], r['cloned'], r['split'], r['pruned'], r['num_active']) for r in dens]} "
+            f"(iteration, cloned, split, pruned, active); growths "
+            f"{[(r['iter'], r['capacity'], r['pause_s']) for r in grows]} (iteration, "
+            f"capacity, pause s)")
+        with np.load(os.path.join(model, f"chkpnt{half}.npz")) as ck:
+            # leaves 2 and 6: the opacity logits and the active mask
+            # (gsjax_torch.train.checkpoint.LEAVES)
+            opac = 1.0 / (1.0 + np.exp(-ck["leaf_2"][ck["leaf_6"], 0]))
+        psnr = {it: e["test"]["psnr"] for it, e in evals.items()}
+        n_eval = sum(e[s]["n_views"] for e in evals.values() for s in ("test", "train"))
+        want = {"composite_fwd": iterations, "composite_bwd": iterations,
+                "composite_infer": n_eval}
+        log(f"  test PSNR {psnr}; it/s {[(r['iter'], round(r['it_per_s'], 2)) for r in progress]}; "
+            f"wall {done['wall_s']:.1f} s; peak memory {done['peak_memory_gib']} GiB; "
+            f"{done['num_active']} gaussians (capacity {done['capacity']}); launches "
+            f"{done['launches']} (want {want}); max opacity after the reset {opac.max():.5f}")
+        checks = {
+            "densify events with clones and splits": bool(dens) and cloned > 0 and split > 0,
+            "a capacity growth": bool(grows),
+            "the opacity reset (every active opacity <= 0.01 in the checkpoint)":
+                float(opac.max()) <= 0.01 + 1e-6,
+            f"test PSNR at {iterations} beats {half}'s":
+                psnr.get(iterations, 0) > psnr.get(half, float("inf")),
+            "no pair dropped at the end": progress[-1]["iter"] == iterations
+                and progress[-1]["dropped_pairs"] == 0,
+            "launches: fwd and bwd once per step, infer once per eval view":
+                device != "cuda" or done["launches"] == want,
+        }
+
+        # resume from the checkpoint for `resume` iterations
+        done2, records2 = _train_run(phase, scene, model2, device, [
+            "--iterations", str(half + resume), *schedule,
+            "--test_iterations", str(half + resume),
+            "--start_checkpoint", os.path.join(model, f"chkpnt{half}.npz")])
+        evals2 = [r["eval"] for r in records2 if "eval" in r]
+        n_eval2 = sum(e[s]["n_views"] for e in evals2 for s in ("test", "train"))
+        want2 = {"composite_fwd": resume, "composite_bwd": resume, "composite_infer": n_eval2}
+        log(f"  resumed at {half}: {resume} iterations in {done2['wall_s']:.1f} s, test PSNR "
+            f"{[e['test']['psnr'] for e in evals2]}, launches {done2['launches']} (want {want2})")
+        checks["the resumed run evaluated"] = len(evals2) == 1
+        checks["resumed launches"] = device != "cuda" or done2["launches"] == want2
+
+        # the snapshot through the render and metrics CLIs
+        out = run_module(phase, ["gsjax_torch.render", "-m", model, "--skip_train",
+                                 "--device", device])
+        renders = os.path.join(model, "test", f"ours_{iterations}", "renders")
+        n_png = len(os.listdir(renders))
+        run_module(phase, ["gsjax_torch.metrics", "-m", model, "--device", device])
+        with open(os.path.join(model, "results.json")) as f:
+            results = json.load(f)[f"ours_{iterations}"]
+        log(f"  render CLI: {n_png} test views; metrics CLI: {results} (training eval "
+            f"{psnr.get(iterations)})")
+        checks["the render CLI wrote every test view, none darkened"] = (
+            n_png == evals[iterations]["test"]["n_views"]
+            and not any("WARNING" in line for line in out))
+        checks["metrics: PSNR within 0.5 dB of the training eval"] = (
+            abs(results["PSNR"] - psnr[iterations]) < 0.5)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"training run: {failed}")
+    log(f"  training run: every check passed ({len(checks)})")
+    return {"wall_s": done["wall_s"], "it_per_s": progress[-1]["it_per_s"],
+            "growth_pause_s": [r["pause_s"] for r in grows],
+            "peak_memory_gib": done["peak_memory_gib"], "psnr": psnr}
+
+
 def main() -> int:
     try:
         import torch
@@ -900,6 +1031,7 @@ def main() -> int:
                     for k, t in probe_times.items()},
     })
     phase_bench()
+    phase_training_run(device)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -52,10 +52,12 @@
 //
 // Table row (float32 words): mean x, mean y, conic a, conic b, conic c,
 // f16(r) << 16 | f16(g), f16(b) << 16 | f16(opacity), unused. Colors and
-// opacity are decoded with __half2float; a value that overflowed f16 reads
-// as inf (the box reads only the geometry and the opacity, so an inf color
-// leaves it finite). Built without --use_fast_math and with expf (not
-// __expf): the 1/255 and 1e-4 thresholds are sensitive to the last ulp.
+// opacity are decoded as gsjax's Pallas kernels decode them
+// (_f16_pair_rows): integer arithmetic on the 15 exponent and mantissa
+// bits, so a value that overflowed f16 (the inf pattern) reads as 65536
+// and stays finite, and a zero or denormal half reads as +0. Built without
+// --use_fast_math and with expf (not __expf): the 1/255 and 1e-4
+// thresholds are sensitive to the last ulp.
 
 #pragma once
 
@@ -74,11 +76,18 @@ constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int FWD_BATCH = 64;       // pairs staged per step of the blend (two ballots)
 constexpr int FWD_MIN_BLOCKS = 6;   // blocks per SM: caps the blend's registers at 40
 
+// One f16 bit pattern h (low 16 bits) as float32: sign | (em + 112 << 10)
+// << 13 on its 15 exponent and mantissa bits em, 0 for em < 1024. Exact
+// for every normal f16; the inf and NaN patterns land on finite floats
+// (inf reads 65536), as in gsjax's decode.
+__device__ __forceinline__ float decode_f16(uint32_t h) {
+  const uint32_t em = h & 0x7FFFu;
+  return __uint_as_float(em < 1024u ? 0u : ((h & 0x8000u) << 16) | ((em + (112u << 10)) << 13));
+}
+
 __device__ __forceinline__ float2 decode_f16_pair(float word) {
   const uint32_t bits = __float_as_uint(word);
-  const __half hi = __ushort_as_half(static_cast<unsigned short>(bits >> 16));
-  const __half lo = __ushort_as_half(static_cast<unsigned short>(bits & 0xFFFFu));
-  return make_float2(__half2float(hi), __half2float(lo));
+  return make_float2(decode_f16(bits >> 16), decode_f16(bits & 0xFFFFu));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

@@ -191,13 +191,27 @@ def pack_gauss_attrs(means2d, conics, colors, opacities):
     ).contiguous()
 
 
+def decode_f16_pair(words):
+    """float32 words packed by :func:`pack_f16_pair` -> (hi, lo) float32,
+    decoded as the kernels' ``decode_f16`` and gsjax's ``_f16_pair_rows``
+    decode them: sign | (em + 112 << 10) << 13 on the 15 exponent and
+    mantissa bits em, 0 for em < 1024. An f16 inf reads as 65536."""
+    bits = words.contiguous().view(torch.int32)
+
+    def dec(h):
+        em = h & 0x7FFF
+        f32 = ((h & 0x8000) << 16) | ((em + (112 << 10)) << 13)
+        return torch.where(em < 1024, torch.zeros_like(f32), f32).view(torch.float32)
+
+    return dec((bits >> 16) & 0xFFFF), dec(bits & 0xFFFF)
+
+
 def unpack_gauss_attrs(gauss_attrs):
     """(N, 8) table -> (means2d, conics, colors, opacities) in float32; the
-    f16 halves decode like ``__half2float`` (an f16 inf reads as inf)."""
-    halves = gauss_attrs[:, 5:7].contiguous().view(torch.float16).to(torch.float32)
-    # per word: low half first — columns are g, r, opacity, b
-    colors = torch.stack([halves[:, 1], halves[:, 0], halves[:, 3]], dim=1)
-    return gauss_attrs[:, 0:2], gauss_attrs[:, 2:5], colors, halves[:, 2]
+    f16 halves decode as in the kernels (:func:`decode_f16_pair`)."""
+    r, g = decode_f16_pair(gauss_attrs[:, 5])
+    b, opacity = decode_f16_pair(gauss_attrs[:, 6])
+    return gauss_attrs[:, 0:2], gauss_attrs[:, 2:5], torch.stack([r, g, b], dim=1), opacity
 
 
 def _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y):

@@ -59,7 +59,7 @@ def render_sets(model, iteration, skip_train, skip_test, device="cuda"):
     from gsjax_torch.train.scene import Scene
     from gsjax_torch.train.step import TrainConfig, make_render_fn
 
-    scene = Scene(model, load_iteration=iteration, device=device)
+    scene = Scene(model, load_iteration=iteration, shuffle=False, device=device)
     state = scene.gaussians
     cams = scene.get_train_cameras() or scene.get_test_cameras()
     settings = None

@@ -1,21 +1,67 @@
-"""Budget sizing of the rasterizer (the budget functions of ``gsjax.train.loop``).
+"""The training loop (torch): orchestration around the train step.
 
-The training driver itself comes with the training slice. What is here
-sizes ``RasterizeSettings`` for a scene before it renders: a heuristic from
-the image size and capacity, then a preprocess probe on the model that
-measures its real footprints.
+Counterpart of ``gsjax.train.loop``, mirroring the reference's
+``training()`` control flow (reference: train.py:31-132): shuffled-stack
+camera sampling (Python's ``random``, so the order equals gsjax's draw for
+draw), the SH-degree ramp every 1000 iterations, densify / prune every
+``densification_interval`` in (densify_from_iter, densify_until_iter),
+opacity resets, eval / save hooks and checkpoints; plus gsjax's pieces:
+fixed-capacity buffers re-bucketed 2x when densification fills them, and
+the overflow reactions that grow a rasterizer budget whenever a step drops
+pairs. Event-free iteration ranges run ``steps_per_dispatch`` steps per
+dispatch (``make_train_step_chained``), and the step's metrics are read
+from the device once per dispatch.
+
+gsjax's compile machinery has no counterpart here and is left out, with
+nothing in its place: the background compile of the next capacity bucket
+(``CapacityWarmer``, ``_grown_abstract``, ``_with_fallback``,
+``_warmed_densify``) and the AOT lowering of the step
+(``_attach_lower_images``). Growing capacity or a budget rebuilds the step
+closures, which costs no compile. Sharded training (``data_shards`` /
+``gauss_shards`` > 1) is not ported (ROADMAP Queue 1 item 7).
+
+Before a scene renders, :func:`default_rasterize_settings` and a
+preprocess probe on the model (:func:`probe_rasterize_settings` for
+inference, the training variant at startup) size its budgets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import random
+import time
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from gsjax_torch.models.gaussians import activated
+from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams, save_cfg_args
+from gsjax_torch.data.cameras import stack_render_cameras
+from gsjax_torch.eval.metrics import psnr
+from gsjax_torch.models.gaussians import activated, create_empty, grow_capacity
 from gsjax_torch.ops.projection import num_tiles, preprocess
 from gsjax_torch.ops.rasterize import RasterizeSettings
+from gsjax_torch.train.checkpoint import (
+    load_checkpoint,
+    load_reference_checkpoint,
+    save_checkpoint,
+)
+from gsjax_torch.train.loss import l1_loss
+from gsjax_torch.train.optim import grow_optimizer, make_optimizer
+from gsjax_torch.train.scene import Scene
+from gsjax_torch.train.step import (
+    TrainConfig,
+    make_densify_step,
+    make_render_fn,
+    make_train_step,
+    make_train_step_chained,
+    stack_images,
+)
+from gsjax_torch.utils.system import resolve_device
+
+GROW_WATERMARK = 0.9  # grow capacity when the active fraction exceeds this
 
 # small-tier cap candidates for the tier_frac safety check
 _TIER_KS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -37,12 +83,13 @@ def default_rasterize_settings(
 
 
 @torch.no_grad()
-def _probe_initial_budgets(settings, state, train_cams, width, height):
+def _probe_initial_budgets(settings, state, train_cams, width, height, inference=False):
     """Measure the model's footprints on up to four cameras and size the
     per-gaussian tile cap, the pair budget, ``tier_frac`` and the
-    expansion before the first render — gsjax's probe with
-    ``inference=True``, same decisions (its training variant, which grows
-    the budget for densification, comes with the training slice)."""
+    expansion before the first render or train step — gsjax's probe, same
+    decisions. Training (``inference=False``) keeps twice the probed pairs
+    up to 1<<24 (densification adds gaussians, and the trainer reacts to
+    overflow); inference sizes the budget at 1.5x the probe."""
     tiles_x, tiles_y = num_tiles(width, height)
     means3d, scales, quats, opac, shs = activated(state)
 
@@ -72,17 +119,29 @@ def _probe_initial_budgets(settings, state, train_cams, width, height):
             2 ** int(np.ceil(np.log2(tiles_x * tiles_y))),
         )
     )
-    # no densification at render time: footprints are fixed and the probe
-    # saw the real view-dependent max, so 1.5x headroom suffices (64k-
-    # aligned). Inference never reacts to overflow, so a scene needing more
-    # than 1<<26 pairs is refused rather than darkened.
-    max_pairs = max(1 << 18, -(-int(pairs_need * 1.5) // 65536) * 65536)
-    if max_pairs > 1 << 26:
-        raise ValueError(
-            f"inference pair budget: probe needs {pairs_need} pairs "
-            f"({max_pairs} with headroom), above the 1<<26 bound — the "
-            "scene cannot render drop-free at this resolution"
-        )
+    # densification adds (small) gaussians, so never shrink the pair budget
+    # below the heuristic; grow it if the probe already exceeds it
+    max_pairs = settings.max_pairs
+    while max_pairs < pairs_need * 2 and max_pairs < 1 << 24:
+        max_pairs *= 2
+    if inference:
+        # no densification at render time: footprints are fixed and the
+        # probe saw the real view-dependent max, so 1.5x headroom suffices
+        # (64k-aligned). Inference never reacts to overflow, so a scene
+        # needing more than 1<<26 pairs is refused rather than darkened.
+        max_pairs = max(1 << 18, -(-int(pairs_need * 1.5) // 65536) * 65536)
+        if max_pairs > 1 << 26:
+            raise ValueError(
+                f"inference pair budget: probe needs {pairs_need} pairs "
+                f"({max_pairs} with headroom), above the 1<<26 bound — the "
+                "scene cannot render drop-free at this resolution"
+            )
+    # A/B knob: scale the probed pair budget, e.g. GSJAX_PAIR_BUDGET_MULT=2
+    # re-runs the tail of a training run with a doubled budget from the
+    # same checkpoint (gsjax reads the same variable)
+    mult = float(os.environ.get("GSJAX_PAIR_BUDGET_MULT", "1") or 1)
+    if mult != 1.0:
+        max_pairs = min(1 << 26, -(-int(max_pairs * mult) // 65536) * 65536)
     # tier_frac safety: the small tier holds the tier_frac*N smallest
     # footprints at mt/4 slots each; start at the measured fraction of
     # gaussians that fit it (3% margin, min over probe cameras)
@@ -125,9 +184,558 @@ def _probe_initial_budgets(settings, state, train_cams, width, height):
     )
 
 
-def probe_rasterize_settings(state, cams, width, height):
-    """Inference-time budget sizing: heuristics + on-model footprint probe
-    (what render.py and the viewers call before rendering a trained
-    model, whose largest gaussians can span hundreds of tiles)."""
-    s = default_rasterize_settings(width, height, state.capacity)
-    return _probe_initial_budgets(s, state, cams, width, height)
+def probe_rasterize_settings(state, cams, width, height, base=None):
+    """Inference-time budget sizing: ``base`` (the heuristics when None)
+    and an on-model footprint probe — what render.py and the viewers call
+    before rendering a trained model, whose largest gaussians can span
+    hundreds of tiles."""
+    s = base or default_rasterize_settings(width, height, state.capacity)
+    return _probe_initial_budgets(s, state, cams, width, height, inference=True)
+
+
+@dataclasses.dataclass
+class TrainerLogs:
+    """jsonl always; TensorBoard when available (the reference guards the
+    import the same way, train.py:25-29)."""
+
+    jsonl_path: Optional[str] = None
+    tb_dir: Optional[str] = None
+    _tb: object = None
+
+    def __post_init__(self):
+        if self.tb_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(self.tb_dir)
+            except Exception:
+                print("Tensorboard not available: not logging progress")
+
+    def write(self, record: dict):
+        if self.jsonl_path:
+            with open(self.jsonl_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        if self._tb is not None and "iter" in record:
+            it = record["iter"]
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k != "iter":
+                    self._tb.add_scalar(f"train/{k}", v, it)
+                elif isinstance(v, dict):
+                    for split, m in v.items():
+                        if isinstance(m, dict):
+                            for mk, mv in m.items():
+                                if isinstance(mv, (int, float)):
+                                    self._tb.add_scalar(f"{split}/{mk}", mv, it)
+
+    def write_eval_media(self, iteration, images, opacities):
+        """Rendered views (first 5), the opacity histogram and the point
+        count at test iterations (reference training_report,
+        train.py:163-190). TensorBoard only; a no-op without it."""
+        if self._tb is None:
+            return
+        for name, img in images[:5]:
+            self._tb.add_image(f"renders/{name}", np.asarray(img), iteration,
+                               dataformats="HWC")
+        self._tb.add_histogram("scene/opacity", np.asarray(opacities), iteration)
+        self._tb.add_scalar("scene/total_points", len(opacities), iteration)
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
+
+
+def _read_metrics(metrics) -> dict:
+    """A step's metrics (0-d device tensors) as Python numbers, in one
+    transfer: the host waits for the device once per dispatch."""
+    names = list(metrics)
+    vals = torch.stack([metrics[k].detach().to(torch.float64) for k in names]).tolist()
+    return {k: (v if metrics[k].is_floating_point() else int(v)) for k, v in zip(names, vals)}
+
+
+def training(
+    model: ModelParams,
+    opt: OptimizationParams,
+    pipe: PipelineParams,
+    testing_iterations: Sequence[int] = (7_000, 30_000),
+    saving_iterations: Sequence[int] = (7_000, 30_000),
+    checkpoint_iterations: Sequence[int] = (),
+    start_checkpoint: Optional[str] = None,
+    quiet: bool = False,
+    settings: Optional[RasterizeSettings] = None,
+    capacity: Optional[int] = None,
+    gui_callback: Optional[Callable] = None,
+    passive_callback: Optional[Callable] = None,
+    seed: int = 0,
+    steps_per_dispatch: int = 25,
+    data_shards: int = 1,
+    gauss_shards: int = 1,
+    debug_from: int = -1,
+    densify_iter_grad: str = "apply",
+    wall_budget: float = 0.0,
+    device="cuda",
+):
+    """Train a scene end to end on ``device``. Returns ``(scene, final
+    GaussianState)``. The arguments are gsjax's ``training``'s:
+
+    ``wall_budget`` > 0 stops once that many seconds have elapsed, as a
+    ``STOP`` file in the model directory does: a checkpoint
+    (``chkpnt<iter>.npz``) and a PLY snapshot are saved; resume with
+    ``start_checkpoint``. ``densify_iter_grad="discard"`` drops the Adam
+    update of densification iterations as the reference does (its tensor
+    surgery leaves ``.grad=None``, reference train.py:118-128); "apply"
+    (the default) applies every step. ``debug_from`` >= 0 turns on
+    ``torch.autograd.set_detect_anomaly`` from that iteration."""
+    dev = resolve_device(device)
+    if densify_iter_grad not in ("apply", "discard"):
+        raise ValueError(f"unknown densify_iter_grad {densify_iter_grad!r}")
+    if data_shards * gauss_shards > 1:
+        raise NotImplementedError(
+            "sharded training (data_shards / gauss_shards > 1) is not ported: "
+            "ROADMAP Queue 1 item 7 (parallel/*)")
+    discard_densify_grad = densify_iter_grad == "discard"
+    random.seed(seed)
+    np.random.seed(seed)
+
+    if not model.model_path:
+        unique = os.getenv("OAR_JOB_ID", str(int(time.time())))[-10:]
+        model.model_path = os.path.join("./output", unique)
+    os.makedirs(model.model_path, exist_ok=True)
+    save_cfg_args(model.model_path, model)
+    logs = TrainerLogs(os.path.join(model.model_path, "train_log.jsonl"),
+                       tb_dir=model.model_path)
+
+    scene = Scene(model, capacity=capacity, device=dev)
+    state = scene.gaussians
+    extent = float(scene.cameras_extent)
+
+    train_cams = scene.get_train_cameras()
+    # mixed per-camera resolutions bucket by size: the largest bucket keeps
+    # the chained path; the others get their own step, built on first use
+    size_buckets: dict = {}
+    for i, c in enumerate(train_cams):
+        size_buckets.setdefault((c.width, c.height), []).append(i)
+    bucket_sizes = sorted(size_buckets, key=lambda s: (-len(size_buckets[s]), s))
+    bucket_of = {}  # global camera index -> (bucket id, local index)
+    bucket_cams = []
+    for b, size in enumerate(bucket_sizes):
+        idxs = size_buckets[size]
+        bucket_cams.append([train_cams[i] for i in idxs])
+        for j, i in enumerate(idxs):
+            bucket_of[i] = (b, j)
+    multi_res = len(bucket_sizes) > 1
+    width, height = bucket_sizes[0]
+
+    if settings is None:
+        settings = default_rasterize_settings(width, height, state.capacity)
+        settings = _probe_initial_budgets(settings, state, train_cams, width, height)
+    cfg = TrainConfig(
+        settings=settings,
+        lambda_dssim=opt.lambda_dssim,
+        white_background=model.white_background,
+        random_background=opt.random_background,
+        extent=extent,
+        compute_cov3d_python=pipe.compute_cov3D_python,
+        convert_shs_python=pipe.convert_SHs_python,
+    )
+
+    def bucket_data(b):
+        """A bucket's cameras and its uint8 GT images, on the device once."""
+        return (stack_render_cameras(bucket_cams[b], dev),
+                torch.from_numpy(stack_images(bucket_cams[b])).to(dev))
+
+    cam_batch, images = bucket_data(0)
+
+    tx = make_optimizer(opt, state.spatial_lr_scale)
+    opt_state = tx.init(state.params)
+    first_iter = 0
+    if start_checkpoint:
+        def make_template(cap, max_sh, lr_scale):
+            s = create_empty(cap, max_sh, lr_scale, device=dev)
+            return s, tx.init(s.params)
+
+        if start_checkpoint.endswith((".pth", ".pt")):
+            # a reference torch checkpoint (train.py:130-132)
+            state, opt_state, first_iter = load_reference_checkpoint(
+                start_checkpoint, make_template)
+        else:
+            state, opt_state, first_iter = load_checkpoint(start_checkpoint, make_template)
+        print(f"Restored checkpoint at iteration {first_iter}")
+
+    n_chain = max(1, int(steps_per_dispatch))
+    if multi_res:
+        n_chain = 1  # chaining assumes one camera-batch shape
+
+    def build_steps(cfg_now):
+        return (make_train_step(tx, cam_batch, images, cfg_now),
+                make_train_step_chained(tx, cam_batch, images, cfg_now, n_chain)
+                if n_chain > 1 else None)
+
+    step, chained = build_steps(cfg)
+    # steps of the other resolution buckets, built on first use; cleared
+    # whenever the settings change
+    extra_bucket_steps: dict = {}
+
+    def bucket_step(b: int):
+        fn = extra_bucket_steps.get(b)
+        if fn is None:
+            fn = make_train_step(tx, *bucket_data(b), cfg)
+            extra_bucket_steps[b] = fn
+        return fn
+
+    densify_step, reset_step = make_densify_step(opt, cfg)
+    render_fn = make_render_fn(cfg)
+    bg = torch.full((3,), 1.0 if model.white_background else 0.0, dtype=torch.float32,
+                    device=dev)
+
+    # iterations after which post-step work happens (densify / reset /
+    # eval / save / checkpoint); a chained dispatch may end on one but
+    # not cross one
+    def is_densify_iter(i: int) -> bool:
+        return (i < opt.densify_until_iter and i > opt.densify_from_iter
+                and i % opt.densification_interval == 0)
+
+    def is_event(i: int) -> bool:
+        if i in testing_iterations or i in saving_iterations:
+            return True
+        if i in checkpoint_iterations or i == opt.iterations:
+            return True
+        if i < opt.densify_until_iter:
+            if is_densify_iter(i):
+                return True
+            if i % opt.opacity_reset_interval == 0:
+                return True
+            if model.white_background and i == opt.densify_from_iter:
+                return True
+        return False
+
+    def chain_len(i: int) -> int:
+        """How many steps starting at iteration i can run in one dispatch."""
+        if discard_densify_grad and is_densify_iter(i):
+            return 1  # must run via the single step carrying apply_update
+        k = 1
+        while k < n_chain:
+            nxt = i + k
+            if nxt % 1000 == 0:  # the SH ramp happens before the step at nxt
+                break
+            if discard_densify_grad and is_densify_iter(nxt):
+                break  # the next iteration needs the single-step path
+            if is_event(nxt - 1):  # post-step work after iteration nxt - 1
+                break
+            k += 1
+        return k
+
+    def pop_camera() -> int:
+        if not viewpoint_stack:
+            viewpoint_stack.extend(range(len(train_cams)))
+        return viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
+
+    key = torch.Generator(device=dev).manual_seed(seed)
+    viewpoint_stack: List[int] = []
+    ema_loss = 0.0
+    t_start = time.time()
+    it_times = []
+    last_progress = time.time()  # slow runs print at least every ~30 s
+
+    iteration = first_iter
+    while iteration < opt.iterations:
+        iteration += 1
+
+        if gui_callback is not None:
+            gui_callback(iteration, state, render_fn)
+        if passive_callback is not None:
+            passive_callback(iteration, state, render_fn)
+
+        # --debug_from: from this iteration on, autograd traps the op that
+        # produced a non-finite gradient (the reference turns its
+        # rasterizer's debug dumps on at the same point, train.py:102-103)
+        if debug_from >= 0 and iteration - 1 == debug_from:
+            torch.autograd.set_detect_anomaly(True)
+            print(f"[ITER {iteration}] debug mode on (torch.autograd.set_detect_anomaly)",
+                  flush=True)
+
+        # SH-degree ramp (reference train.py:72-73)
+        if iteration % 1000 == 0:
+            state = dataclasses.replace(
+                state, active_sh_degree=min(state.active_sh_degree + 1, state.max_sh_degree))
+
+        k_len = chain_len(iteration) if gui_callback is None else 1
+        t0 = time.time()
+        if chained is not None and k_len == n_chain:
+            cam_idxs = [bucket_of[pop_camera()][1] for _ in range(n_chain)]
+            state, opt_state, metrics = chained(state, opt_state, cam_idxs, key)
+            metrics = _read_metrics(metrics)
+            loss = metrics["loss_mean"]
+            n_stepped = n_chain
+        else:
+            b, cam_idx = bucket_of[pop_camera()]
+            fn = step if b == 0 else bucket_step(b)
+            # reference-exact: densify iterations render and collect stats
+            # but drop the Adam update (train.py:118-128)
+            apply = not is_densify_iter(iteration) if discard_densify_grad else None
+            state, opt_state, metrics = fn(state, opt_state, cam_idx, key, apply)
+            metrics = _read_metrics(metrics)
+            loss = metrics["loss"]
+            n_stepped = 1
+        dt = time.time() - t0
+        it_times.extend([dt / n_stepped] * n_stepped)
+        iteration += n_stepped - 1
+
+        if not np.isfinite(loss):
+            # crash forensics (the reference's rasterizer debug dump,
+            # reference README.md:143-146): with --debug, snapshot the
+            # training state for offline repro before aborting
+            if pipe.debug:
+                dump = os.path.join(model.model_path or ".", f"snapshot_{iteration}.npz")
+                np.savez(
+                    dump, iteration=iteration,
+                    cam_idx=np.asarray(cam_idx if n_stepped == 1 else cam_idxs),
+                    active=state.active.cpu().numpy(),
+                    **{f"param_{kk}": v.detach().cpu().numpy()
+                       for kk, v in state.params.items()},
+                )
+                print(f"[ITER {iteration}] non-finite loss; dumped {dump}", flush=True)
+            raise FloatingPointError(
+                f"non-finite loss {loss} at iteration {iteration}"
+                + ("" if pipe.debug else " (re-run with --debug for a dump)"))
+
+        ema_loss = 0.4 * loss + 0.6 * ema_loss
+
+        # pair overflow: grow the exhausted budget (the reference never
+        # drops; its CUDA rasterizer allocates the key buffer per frame).
+        # Two causes, each with its own knob: the global pair budget, and
+        # the per-gaussian tile cap (whose drops a bigger max_pairs alone
+        # can never clear).
+        mt_capped = metrics["num_mt_capped_pairs"]
+        if "num_budget_dropped" in metrics:  # chained: per-step difference
+            budget_dropped = metrics["num_budget_dropped"]
+        else:
+            budget_dropped = metrics["num_dropped_pairs"] - mt_capped
+        tile_capped = metrics["num_tile_capped"]
+        # tier-capped pairs are the mt-capped ones whose loss is the small
+        # tier's slot width: shrinking tier_frac recovers them
+        tier_capped = metrics["num_tier_capped_pairs"]
+        # chained runs pre-difference mt - tier per inner step
+        mt_only = metrics.get("num_mt_only_capped", mt_capped - tier_capped)
+        grow_budget = budget_dropped > 0 and settings.max_pairs < (1 << 26)
+        # the tile cap may grow until one gaussian can cover the whole
+        # frame, or until the dense expansion grid passes ~64M slots
+        tiles_total = -(-width // 16) * -(-height // 16)
+        mt_frame_cap = 2 ** int(np.ceil(np.log2(max(tiles_total, 2))))
+
+        def _expansion_slots(mt):
+            tf = settings.tier_frac
+            ca = min(int(state.capacity * tf) // 8 * 8, state.capacity)
+            return ca * max(2, mt // 4) + (state.capacity - ca) * mt
+
+        new_expansion = settings.expansion
+        if settings.expansion == "compact":
+            # the compact expansion sorts max_pairs entries whatever mt is
+            mt_cap = mt_frame_cap
+        else:
+            mt_cap = 16
+            while mt_cap < mt_frame_cap and _expansion_slots(mt_cap * 2) <= (1 << 26):
+                mt_cap *= 2
+            if mt_only > 0 and settings.max_tiles_per_gauss >= mt_cap and mt_frame_cap > mt_cap:
+                # the grid hit its slot bound with pairs still capped: the
+                # compact expansion affords a bigger mt at max_pairs sort cost
+                new_expansion = "compact"
+                mt_cap = mt_frame_cap
+        grow_mt = mt_only > 0 and settings.max_tiles_per_gauss < mt_cap
+        exch_dropped = 0  # splat-exchange overflow exists only in gsjax's sharded step
+        back_off_tier = tier_capped > 0 and settings.tier_frac > 0
+        # the scan's fixed depth truncated a live tile (the kernel never
+        # caps; this fires on scan-backend runs only)
+        grow_mspt = tile_capped > 0 and settings.max_splats_per_tile < (1 << 16)
+        if (grow_budget or grow_mt or grow_mspt or back_off_tier
+                or new_expansion != settings.expansion):
+            new_budget = settings.max_pairs * (2 if grow_budget else 1)
+            new_mt = settings.max_tiles_per_gauss * (2 if grow_mt else 1)
+            new_mspt = settings.max_splats_per_tile * (2 if grow_mspt else 1)
+            new_tier = settings.tier_frac
+            if back_off_tier:
+                new_tier = settings.tier_frac / 2
+                if new_tier < 0.25:  # too small a tier saves no sort time
+                    new_tier = 0.0
+            new_a2a = settings.a2a_rows
+            print(
+                f"[ITER {iteration}] pair overflow "
+                f"(budget dropped {budget_dropped}, tile-capped {mt_capped}, "
+                f"tier-capped {tier_capped}, tile-truncated {tile_capped}, "
+                f"exchange-dropped {exch_dropped}): "
+                f"max_pairs {settings.max_pairs} -> {new_budget}, "
+                f"tile cap {settings.max_tiles_per_gauss} -> {new_mt}, "
+                f"splats/tile {settings.max_splats_per_tile} -> {new_mspt}, "
+                f"tier_frac {settings.tier_frac} -> {new_tier}, "
+                f"a2a rows {settings.a2a_rows} -> {new_a2a}, "
+                f"expansion {new_expansion}",
+                flush=True,
+            )
+            # --quiet swallows stdout, so budget reactions also land in
+            # the jsonl
+            logs.write({
+                "iter": iteration, "event": "pair_overflow",
+                "budget_dropped": budget_dropped, "mt_capped": mt_capped,
+                "tier_capped": tier_capped, "tile_truncated": tile_capped,
+                "exchange_dropped": exch_dropped,
+                "max_pairs": new_budget, "max_tiles_per_gauss": new_mt,
+                "max_splats_per_tile": new_mspt, "tier_frac": new_tier,
+                "a2a_rows": new_a2a, "expansion": new_expansion,
+            })
+            settings = dataclasses.replace(
+                settings, max_pairs=new_budget, max_tiles_per_gauss=new_mt,
+                max_splats_per_tile=new_mspt, tier_frac=new_tier,
+                a2a_rows=new_a2a, expansion=new_expansion,
+            )
+            cfg = dataclasses.replace(cfg, settings=settings)
+            step, chained = build_steps(cfg)
+            extra_bucket_steps.clear()
+            densify_step, reset_step = make_densify_step(opt, cfg)
+            render_fn = make_render_fn(cfg)
+        elif (budget_dropped > 0 or mt_only > 0 or tier_capped > 0
+              or tile_capped > 0) and iteration % 100 == 0:
+            # residual drops with no reaction left: every relevant knob is
+            # at its ceiling; say which, at the logging cadence
+            pinned = []
+            if budget_dropped > 0 and settings.max_pairs >= (1 << 26):
+                pinned.append("max_pairs@1<<26")
+            if mt_only > 0 and settings.max_tiles_per_gauss >= mt_cap:
+                pinned.append(f"max_tiles_per_gauss@{settings.max_tiles_per_gauss}"
+                              f"(cap {mt_cap}, expansion {settings.expansion})")
+            if tier_capped > 0 and settings.tier_frac == 0:
+                pinned.append("tier_frac@0")
+            if tile_capped > 0 and settings.max_splats_per_tile >= (1 << 16):
+                pinned.append("max_splats_per_tile@1<<16")
+            logs.write({
+                "iter": iteration, "event": "pair_overflow_pinned",
+                "budget_dropped": budget_dropped, "mt_capped": mt_capped,
+                "tier_capped": tier_capped, "tile_truncated": tile_capped,
+                "ceiling_pinned": pinned,
+            })
+            if not quiet:
+                print(f"[ITER {iteration}] residual pair drops (budget {budget_dropped}, "
+                      f"mt {mt_only}, tier {tier_capped}) with ceilings pinned: "
+                      f"{', '.join(pinned) or 'unknown'}", flush=True)
+
+        if iteration % 100 == 0 or (not quiet and time.time() - last_progress > 30):
+            n_act = metrics["num_active"]
+            k = min(len(it_times), 100)
+            rate = k / max(sum(it_times[-k:]), 1e-9)
+            last_progress = time.time()
+            if not quiet:
+                print(f"[ITER {iteration}] loss {ema_loss:.5f} | gaussians {n_act} | "
+                      f"{rate:.2f} it/s", flush=True)
+            logs.write({
+                "iter": iteration, "loss": loss, "ema_loss": ema_loss,
+                "num_active": n_act, "dropped_pairs": metrics["num_dropped_pairs"],
+                "it_per_s": rate,
+            })
+
+        if iteration in testing_iterations:
+            media = []
+            report = evaluate_state(state, scene, render_fn, bg, num_train_views=5,
+                                    media=media)
+            print(f"[ITER {iteration}] eval: {report}", flush=True)
+            logs.write({"iter": iteration, "eval": report})
+            opacities = torch.sigmoid(state.params["opacity"].detach()[state.active, 0])
+            logs.write_eval_media(iteration, media, opacities.cpu().numpy())
+
+        if iteration in saving_iterations:
+            print(f"[ITER {iteration}] Saving Gaussians", flush=True)
+            scene.save(iteration, state)
+
+        # densification (reference train.py:112-123)
+        if iteration < opt.densify_until_iter:
+            if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
+                use_screen = iteration > opt.opacity_reset_interval
+                state, opt_state, dstats = densify_step(state, opt_state, key,
+                                                        use_screen_size=use_screen)
+                d = _read_metrics({**dstats._asdict(), "num_active": state.num_active})
+                n_act = d["num_active"]
+                logs.write({
+                    "iter": iteration, "event": "densify",
+                    "cloned": d["num_cloned"], "split": d["num_split"],
+                    "pruned": d["num_pruned"], "pruned_opacity": d["num_pruned_opacity"],
+                    "pruned_screen": d["num_pruned_screen"],
+                    "pruned_world": d["num_pruned_world"],
+                    "add_dropped": d["num_dropped"], "num_active": n_act,
+                })
+                if d["num_dropped"] > 0 or n_act > GROW_WATERMARK * state.capacity:
+                    t_grow = time.time()
+                    old_c, new_c = state.capacity, state.capacity * 2
+                    print(f"[ITER {iteration}] growing capacity {old_c} -> {new_c}",
+                          flush=True)
+                    state = grow_capacity(state, new_c)
+                    opt_state = grow_optimizer(opt_state, state.params)
+                    step, chained = build_steps(cfg)
+                    extra_bucket_steps.clear()
+                    densify_step, reset_step = make_densify_step(opt, cfg)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    pause = time.time() - t_grow
+                    print(f"[ITER {iteration}] growth pause {pause:.2f}s", flush=True)
+                    logs.write({"iter": iteration, "event": "capacity_growth",
+                                "capacity": new_c, "precompiled": [],
+                                "pause_s": round(pause, 2)})
+
+            if iteration % opt.opacity_reset_interval == 0 or (
+                model.white_background and iteration == opt.densify_from_iter
+            ):
+                state, opt_state = reset_step(state, opt_state)
+
+        if iteration in checkpoint_iterations:
+            print(f"[ITER {iteration}] Saving Checkpoint", flush=True)
+            save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
+                            state, opt_state, iteration)
+
+        stop_file = os.path.join(model.model_path, "STOP")
+        stop_req = os.path.exists(stop_file)
+        if stop_req:
+            os.remove(stop_file)
+        if (wall_budget > 0 and time.time() - t_start > wall_budget) or stop_req:
+            print(f"[ITER {iteration}] "
+                  + ("STOP file" if stop_req else f"wall budget ({wall_budget:.0f}s)")
+                  + " — saving checkpoint + snapshot and stopping", flush=True)
+            save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
+                            state, opt_state, iteration)
+            scene.gaussians = state
+            scene.save(iteration)
+            logs.write({"iter": iteration, "event": "wall_budget_stop",
+                        "budget_s": wall_budget})
+            break
+
+    wall = time.time() - t_start
+    logs.close()
+    if not quiet:
+        print(f"Training complete in {wall:.1f}s", flush=True)
+    scene.gaussians = state
+    return scene, state
+
+
+@torch.no_grad()
+def evaluate_state(state, scene, render_fn, bg, num_train_views=5, media=None):
+    """Test-split and first-k-train-view L1 / PSNR (reference
+    training_report, train.py:156-191). When ``media`` is a list, up to 5
+    (name, HWC image) pairs are appended for TensorBoard."""
+    report = {}
+    configs = [
+        ("test", scene.get_test_cameras()),
+        ("train", scene.get_train_cameras()[:num_train_views]),
+    ]
+    for name, cams in configs:
+        if not cams:
+            continue
+        l1s, psnrs = [], []
+        for i, cam in enumerate(cams):
+            img = torch.clamp(render_fn(state, cam.to_render_camera(state.device), bg), 0.0, 1.0)
+            gt = torch.clamp(torch.as_tensor(np.asarray(cam.image), device=img.device), 0.0, 1.0)
+            l1s.append(l1_loss(img, gt))
+            psnrs.append(psnr(img, gt))
+            if media is not None and i < 5 and len(media) < 5:
+                media.append((f"{name}_{cam.image_name}", img.cpu().numpy()))
+        l1s, psnrs = torch.stack(l1s).tolist(), torch.stack(psnrs).tolist()
+        report[name] = {
+            "l1": float(np.mean(l1s)),
+            "psnr": float(np.mean(psnrs)),
+            "n_views": len(cams),
+        }
+    return report

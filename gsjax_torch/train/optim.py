@@ -109,9 +109,19 @@ def adam_moments(opt: GaussianAdam):
     return mu, nu
 
 
-def with_adam_moments(opt: GaussianAdam, mu, nu) -> GaussianAdam:
-    """Replace the moments (after densification); returns ``opt``."""
-    step = torch.tensor(float(opt.count), dtype=torch.float32)
+def adam_count(opt: GaussianAdam) -> int:
+    """Adam's own step count (optax's ``ScaleByAdamState.count``), which
+    drives the bias correction: ``opt.count`` unless a checkpoint set it
+    apart (a reference checkpoint's Adam steps and its iteration differ)."""
+    st = opt.state.get(opt.param("xyz"))
+    return int(st["step"]) if st else int(opt.count)
+
+
+def with_adam_moments(opt: GaussianAdam, mu, nu, count=None) -> GaussianAdam:
+    """Replace the moments (after densification); Adam's step count stays
+    as it was unless ``count`` sets it. Returns ``opt``."""
+    step = torch.tensor(float(adam_count(opt) if count is None else count),
+                        dtype=torch.float32)
     for k in PARAM_KEYS:
         p = opt.param(k)
         opt.state[p] = {
@@ -131,6 +141,7 @@ def opt_state_from_numpy(mu, nu, count: int, optimizer: GaussianAdam) -> Gaussia
         optimizer,
         {k: torch.from_numpy(np.array(mu[k], np.float32)) for k in PARAM_KEYS},
         {k: torch.from_numpy(np.array(nu[k], np.float32)) for k in PARAM_KEYS},
+        count=int(count),
     )
 
 
@@ -162,4 +173,5 @@ def grow_optimizer(optimizer: GaussianAdam, params: Dict[str, torch.Tensor]) -> 
     if not optimizer.state:  # no step taken yet: nothing to carry
         return grown
     return with_adam_moments(grown, {k: pad(mu[k], params[k]) for k in PARAM_KEYS},
-                             {k: pad(nu[k], params[k]) for k in PARAM_KEYS})
+                             {k: pad(nu[k], params[k]) for k in PARAM_KEYS},
+                             count=adam_count(optimizer))

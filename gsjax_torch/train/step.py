@@ -25,11 +25,19 @@ import dataclasses
 
 import torch
 
+import numpy as np
+
 from gsjax_torch.data.cameras import RenderCamera, index_render_camera
-from gsjax_torch.models.densify import add_densification_stats
+from gsjax_torch.models.densify import (
+    DensifyConfig,
+    add_densification_stats,
+    densify_and_prune,
+    reset_opacity,
+)
 from gsjax_torch.models.gaussians import GaussianState, activated
 from gsjax_torch.ops.rasterize import RasterizeSettings, render
 from gsjax_torch.train.loss import l1_loss, ssim
+from gsjax_torch.train.optim import adam_moments, with_adam_moments
 from gsjax_torch.utils.math import build_covariance, safe_normalize, strip_symmetric
 from gsjax_torch.utils.sh import eval_sh
 
@@ -255,3 +263,57 @@ def make_train_step_chained(tx, cameras, images, cfg: TrainConfig, n_steps: int)
         return state, opt_state, metrics
 
     return chained
+
+
+@torch.no_grad()
+def _rebind(state: GaussianState, new: GaussianState) -> GaussianState:
+    """``new`` with its parameters written into ``state``'s parameter
+    tensors, in place: the optimizer stays bound to them (capacity is fixed
+    between growths)."""
+    for k, v in new.params.items():
+        state.params[k].copy_(v)
+    return dataclasses.replace(new, params=state.params)
+
+
+def make_densify_step(opt, cfg: TrainConfig):
+    """The densification and opacity-reset steps (gsjax's
+    ``make_densify_step``), over a state and the optimizer bound to its
+    parameters:
+
+    ``densify_step(state, opt_state, key, use_screen_size, eps=None) ->
+    (state, opt_state, stats)`` and ``opacity_reset_step(state, opt_state)
+    -> (state, opt_state)``. ``key`` is a ``torch.Generator`` for the split
+    noise (or ``eps``, see ``models.densify.densify_and_prune``). The
+    parameters are written in place, the moments are zeroed at every
+    written slot, and the optimizer's counts stay."""
+    dcfg = DensifyConfig(
+        grad_threshold=opt.densify_grad_threshold,
+        percent_dense=opt.percent_dense,
+    )
+
+    def densify_step(state, opt_state, key, use_screen_size: bool, eps=None):
+        mu, nu = adam_moments(opt_state)
+        new, mu, nu, stats = densify_and_prune(
+            state, mu, nu, key, cfg.extent, dcfg, use_screen_size=use_screen_size, eps=eps)
+        return _rebind(state, new), with_adam_moments(opt_state, mu, nu), stats
+
+    def opacity_reset_step(state, opt_state):
+        mu, nu = adam_moments(opt_state)
+        new, mu, nu = reset_opacity(state, mu, nu, dcfg)
+        return _rebind(state, new), with_adam_moments(opt_state, mu, nu)
+
+    return densify_step, opacity_reset_step
+
+
+def stack_images(cameras_list, dtype=np.uint8):
+    """Stack per-camera GT images (applying alpha masks, reference
+    scene/cameras.py:39-46) into one (M, H, W, 3) numpy array."""
+    imgs = []
+    for cam in cameras_list:
+        img = cam.image
+        if cam.alpha_mask is not None:
+            img = img * cam.alpha_mask[..., None]
+        if dtype == np.uint8:
+            img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+        imgs.append(img)
+    return np.stack(imgs)

@@ -14,6 +14,11 @@ from __future__ import annotations
 import torch
 
 
+def inverse_sigmoid(x):
+    """Logit: inverse of the sigmoid opacity activation."""
+    return torch.log(x / (1.0 - x))
+
+
 def safe_normalize(x, dim=-1, eps=1e-12):
     """L2-normalize, finite at x = 0 (padding slots hold zeros)."""
     n2 = torch.sum(x * x, dim=dim, keepdim=True)

@@ -114,26 +114,34 @@ def test_render_on_cuda_matches_cpu():
 
 @pytest.mark.cuda
 def test_kernel_f16_overflow_matches_plain_version():
-    """A color above 65504 decodes as inf in the kernel (``__half2float``)
-    and makes exactly the pixels it blends into inf, as the plain version
-    does (see tests/test_torch_render.py::test_f16_color_overflow)."""
+    """A color above 65504 decodes as 65536 in the kernel, as in gsjax's
+    Pallas decode and the plain version (``cuda_composite.decode_f16_pair``):
+    the kernel backend's image is finite and equals the plain version's on
+    the CPU within the kernel tiers (see
+    tests/test_torch_render.py::test_f16_color_overflow); the scan backend
+    keeps the inf on exactly the pixels the gaussian covers."""
     dev = _cuda()
     gs = _scene(40, 0)
     colors = torch.from_numpy(np.random.default_rng(0).uniform(0.1, 0.9, (40, 3))
-                              .astype(np.float32)).to(dev)
+                              .astype(np.float32))
     colors[0, 1] = 7e4
+    outs = {}
     with torch.no_grad():
-        outs = {b: render(_camera(64, 64, dev), *(torch.from_numpy(g).to(dev) for g in gs),
-                          3, torch.zeros(3, device=dev), RasterizeSettings(backend=b),
-                          colors_precomp=colors)["render"]
-                for b in ("kernel", "scan")}
-    inf_k, inf_s = torch.isinf(outs["kernel"]), torch.isinf(outs["scan"])
-    assert bool(inf_k.any()) and torch.equal(inf_k, inf_s)
-    assert not bool(torch.isnan(outs["kernel"]).any())
-    fin = ~inf_s
-    assert_two_tier(outs["kernel"][fin], outs["scan"][fin], "finite pixels")
-
-
+        for d, b in ((dev, "kernel"), (dev, "scan"), (torch.device("cpu"), "kernel")):
+            outs[d.type, b] = render(
+                _camera(64, 64, d), *(torch.from_numpy(g).to(d) for g in gs), 3,
+                torch.zeros(3, device=d), RasterizeSettings(backend=b),
+                colors_precomp=colors.to(d))["render"].cpu()
+    kern, plain, scan = outs["cuda", "kernel"], outs["cpu", "kernel"], outs["cuda", "scan"]
+    assert bool(torch.isfinite(kern).all())
+    covered = torch.isinf(scan).any(-1)
+    assert bool(covered.any()) and not bool(torch.isnan(scan).any())
+    assert float(kern[covered][:, 1].max()) > 1e3
+    # the covered pixels hold 65536 alpha T: the tiers relative to their size
+    assert_two_tier(kern[~covered], plain[~covered], "uncovered pixels")
+    scale = plain[covered].abs().clamp_min(1.0)
+    assert_two_tier(kern[covered] / scale, plain[covered] / scale, "covered pixels")
+    assert_two_tier(kern[~covered], scan[~covered], "scan, uncovered pixels")
 
 
 def assert_norm_tiers(got, want, name, p999=1e-3, mx=2e-2):
@@ -473,3 +481,99 @@ def test_gauss_attrs_layout():
     assert bits[6] & 0xFFFFFFFF == (half[1.0] << 16) | half[0.75]
     assert torch.equal(a[0, :5], torch.cat([m[0], c[0]]))
     assert bits[7] == 0
+
+
+def test_f16_decode_is_gsjax_s_bit_arithmetic():
+    """``decode_f16_pair`` (the plain versions' decode; the kernels'
+    ``decode_f16`` runs the same bit arithmetic): every normal f16 exactly,
+    zeros and denormals (which the packer flushes) as +0, and the inf and
+    NaN patterns as the finite values gsjax's Pallas decode gives them."""
+    halves = torch.arange(0, 1 << 16, dtype=torch.int32)
+    words = (halves << 16 | halves).view(torch.float32)
+    hi, lo = cc.decode_f16_pair(words)
+    assert torch.equal(hi.view(torch.int32), lo.view(torch.int32))
+    f16 = halves.to(torch.int16).view(torch.float16).to(torch.float32)
+    em = halves & 0x7FFF
+    normal = (em >= 0x400) & (em < 0x7C00)
+    assert torch.equal(hi[normal], f16[normal])
+    assert not hi[em < 0x400].view(torch.int32).any()  # +0, sign dropped
+    assert float(hi[0x7C00]) == 65536.0 and float(hi[0xFC00]) == -65536.0
+    assert bool(torch.isfinite(hi).all())
+    # round trip through the packer, as the renderer packs colors
+    x = torch.tensor([7e4, -1e5, 0.3, 1e-6, 65504.0])
+    r, g = cc.decode_f16_pair(cc.pack_f16_pair(x, -x))
+    assert r.tolist() == [65536.0, -65536.0, float(torch.tensor(0.3).half()), 0.0, 65504.0]
+    assert g.tolist() == [-65536.0, 65536.0, -float(torch.tensor(0.3).half()), 0.0, -65504.0]
+
+
+@pytest.mark.cuda
+def test_densify_on_the_card_matches_the_plain_cpu_result():
+    """The training loop's state surgery on CUDA tensors: clone / split /
+    prune (the split noise given), the opacity reset, the optimizer edits
+    of ``make_densify_step`` and a train step after them, against the same
+    calls on the CPU."""
+    import dataclasses
+
+    from gsjax_torch.configs import OptimizationParams
+    from gsjax_torch.models.densify import DensifyConfig, densify_and_prune, reset_opacity
+    from gsjax_torch.models.gaussians import state_from_numpy
+    from gsjax_torch.train.optim import adam_moments, make_optimizer
+    from gsjax_torch.train.step import TrainConfig, make_densify_step
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    n, c = 3000, 4096
+    means, scales, quats, opac, shs = _scene(n, 5)
+    scales[n // 2:] *= 0.1  # below percent_dense * extent (0.03): clones; the rest split
+    params = {"xyz": means, "scaling": np.log(scales), "rotation": quats,
+              "opacity": np.log(opac / (1 - opac))[:, None], "features_dc": shs[:, :1],
+              "features_rest": shs[:, 1:]}
+    params = {k: np.concatenate([v, np.zeros((c - n,) + v.shape[1:], np.float32)])
+              for k, v in params.items()}
+    active = np.arange(c) < n
+    denom = np.where(active, rng.integers(1, 5, c), 0).astype(np.float32)
+    accum = (rng.uniform(0, 4e-4, c) * denom).astype(np.float32)
+    radii = np.where(active, rng.uniform(0, 30, c), 0).astype(np.float32)
+    eps = torch.from_numpy(rng.normal(0, 1, (2, c, 3)).astype(np.float32))
+    mu = {k: torch.from_numpy(rng.normal(0, 1e-3, v.shape).astype(np.float32))
+          for k, v in params.items()}
+    nu = {k: torch.from_numpy(rng.uniform(0, 1e-6, v.shape).astype(np.float32))
+          for k, v in params.items()}
+
+    def state(d):
+        s = state_from_numpy(params, active, 3, device=d)
+        return dataclasses.replace(s, max_radii2d=torch.from_numpy(radii).to(d),
+                                   xyz_grad_accum=torch.from_numpy(accum).to(d),
+                                   denom=torch.from_numpy(denom).to(d))
+
+    out = {}
+    for d in ("cpu", dev):
+        for screen in (False, True):
+            new, m, v, st = densify_and_prune(
+                state(d), {k: t.to(d) for k, t in mu.items()},
+                {k: t.to(d) for k, t in nu.items()}, None, 3.0, DensifyConfig(),
+                use_screen_size=screen, eps=eps.to(d))
+            new, m, v = reset_opacity(new, m, v)
+            out[str(d), screen] = (new, m, v, st)
+    for screen in (False, True):
+        (a, am, av, ast), (b, bm, bv, bst) = out["cpu", screen], out[str(dev), screen]
+        assert [int(x) for x in ast] == [int(x) for x in bst]
+        assert int(ast.num_cloned) > 0 and int(ast.num_split) > 0
+        assert torch.equal(a.active, b.active.cpu())
+        for k in a.params:
+            # exp, log and the child offsets round alike to an ulp or two
+            torch.testing.assert_close(b.params[k].cpu(), a.params[k], rtol=1e-6, atol=1e-6)
+            assert torch.equal(am[k], bm[k].cpu()) and torch.equal(av[k], bv[k].cpu())
+
+    # make_densify_step on the card: the bound optimizer steps on
+    s = state(dev)
+    opt = make_optimizer(OptimizationParams(), 1.0).init(s.params)
+    densify, reset = make_densify_step(OptimizationParams(), TrainConfig(extent=3.0))
+    s, opt, st = densify(s, opt, torch.Generator(device=dev).manual_seed(0), True)
+    s, opt = reset(s, opt)
+    assert all(opt.param(k) is s.params[k] for k in s.params)
+    for v in s.params.values():
+        v.grad = torch.full_like(v, 1e-3)
+    opt.step()
+    assert bool(torch.isfinite(s.params["xyz"]).all()) and opt.count == 1
+    assert all(m.device == s.params["xyz"].device for m in adam_moments(opt)[0].values())

@@ -24,7 +24,10 @@ def _port_modules():
 def test_port_imports_without_jax_or_gsjax():
     mods = _port_modules()
     assert {"gsjax_torch.ops.cuda_composite", "gsjax_torch.render",
-            "gsjax_torch.train.loop"} <= set(mods)
+            "gsjax_torch.train.loop", "gsjax_torch.models.densify",
+            "gsjax_torch.train.checkpoint", "gsjax_torch.train.__main__",
+            "gsjax_torch.metrics", "gsjax_torch.full_eval",
+            "gsjax_torch.synthetic_scene"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -77,3 +80,32 @@ def test_entry_points_default_to_cuda():
         render_main(["-m", "/nonexistent-model"])
     # the CPU works when asked for
     assert create_empty(8, device="cpu").capacity == 8
+
+
+@pytest.mark.parametrize("entry", ["train", "metrics", "full_eval", "synthetic_scene",
+                                   "training", "scene"])
+def test_training_entry_points_refuse_without_cuda(entry, tmp_path):
+    """The training slice's entry points default to CUDA and raise without
+    it, before they read or write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults would run")
+    from gsjax_torch import full_eval, metrics, synthetic_scene
+    from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams
+    from gsjax_torch.train.__main__ import main as train_main
+    from gsjax_torch.train.loop import training
+    from gsjax_torch.train.scene import Scene
+
+    missing = str(tmp_path / "missing")
+    calls = {
+        "train": lambda: train_main(["-s", missing, "-m", str(tmp_path / "m")]),
+        "metrics": lambda: metrics.main(["-m", missing]),
+        "full_eval": lambda: full_eval.main(["--scenes", missing]),
+        "synthetic_scene": lambda: synthetic_scene.main([str(tmp_path / "s")]),
+        "training": lambda: training(ModelParams(source_path=missing),
+                                     OptimizationParams(), PipelineParams()),
+        "scene": lambda: Scene(ModelParams(source_path=os.path.join(
+            ROOT, "tests", "data_missing"), model_path=str(tmp_path / "m"))),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+    assert not os.listdir(tmp_path)

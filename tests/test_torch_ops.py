@@ -120,9 +120,17 @@ def test_quantize_and_f16_pack_contract():
                                   torch.from_numpy(y))
     _, _, col, op = t_cc.unpack_gauss_attrs(attrs)
     q = t_q(torch.from_numpy(x))
-    np.testing.assert_array_equal(col[:, 0].numpy(), q.numpy())
+    np.testing.assert_array_equal(col[:-1, 0].numpy(), q[:-1].numpy())
     np.testing.assert_array_equal(op.numpy(), t_q(torch.from_numpy(y)).numpy())
-    assert np.isinf(col[-1, 0].item())  # 7e4 overflows f16: decodes as inf
+    # 7e4 overflows f16 (quantize_f16 gives inf); the decode reads the inf
+    # pattern as gsjax's Pallas kernels do (_f16_pair_rows): 65536
+    assert np.isinf(q[-1].item()) and col[-1, 0].item() == 65536.0
+    from gsjax.ops.pallas_composite import _f16_pair_rows
+
+    hi, lo = t_cc.decode_f16_pair(tw)
+    j_hi, j_lo = _f16_pair_rows(jw)
+    np.testing.assert_array_equal(hi.view(torch.int32).numpy(), np.asarray(j_hi).view(np.int32))
+    np.testing.assert_array_equal(lo.view(torch.int32).numpy(), np.asarray(j_lo).view(np.int32))
 
 
 # --------------------------------------------------------------------------

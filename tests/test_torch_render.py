@@ -201,18 +201,18 @@ def test_pair_budget_overflow_counted(backend):
 
 
 def test_f16_color_overflow():
-    """ROADMAP Queue 3: a color above 65504 overflows the f16 quantization.
+    """A color above 65504 overflows the f16 quantization.
 
-    Pinned behaviour: gsjax's XLA scan composites the f16 inf through a
-    dense matmul, so 0 * inf = NaN spreads over that channel of every
-    pixel; gsjax's Pallas
-    decode reads the overflowed half as 65536 and stays finite. The port
-    reads it as inf (XLA's upcast; ``__half2float`` in the kernel) and adds
-    a pair only to the pixels it blends into, so exactly the pixels the
-    overflowing gaussian covers are inf — the pixels where gsjax's Pallas
-    image is huge — and every other pixel equals gsjax's Pallas image.
-    Both port backends agree; tests/test_torch_cuda.py holds the kernel to
-    the same on the card."""
+    gsjax's XLA scan composites the f16 inf through a dense matmul, so 0 *
+    inf = NaN spreads over that channel of every pixel; gsjax's Pallas
+    decode works on the bits and reads the overflowed half as 65536, so its
+    image stays finite. The port's kernel backend decodes the same way (in
+    the kernels and in their plain versions, ``decode_f16_pair``) and
+    equals gsjax's Pallas image on every pixel. The port's scan backend
+    (pinned, ROADMAP Queue 3) keeps the inf and adds a pair only to the
+    pixels it blends into, so exactly the pixels the overflowing gaussian
+    covers are inf and every other pixel equals gsjax's Pallas image.
+    tests/test_torch_cuda.py holds the kernel to the same on the card."""
     rng = np.random.default_rng(0)
     gs = make_test_gaussians(40, rng)
     cam = make_test_camera(64, 64, seed=1)
@@ -231,14 +231,20 @@ def test_f16_color_overflow():
     jp0 = j_out(cam, gs, bg, JSettings(backend="pallas", **s), colors_precomp=cols0)
     covered = jp["render"][..., 1] != jp0["render"][..., 1]
     assert covered.sum() > 10 and jp["render"][..., 1].max() > 1e3
-    for backend in ("scan", "kernel"):
-        to = t_out(cam, gs, bg, TSettings(backend=backend, **s), colors_precomp=cols)
-        img = to["render"]
-        assert not np.isnan(img).any()
-        np.testing.assert_array_equal(np.isinf(img).any(-1), covered)
-        assert np.isinf(img[covered][:, 1]).all()
-        np.testing.assert_allclose(img[~covered], jp["render"][~covered], atol=1e-5)
 
+    img = t_out(cam, gs, bg, TSettings(backend="kernel", **s), colors_precomp=cols)["render"]
+    assert np.isfinite(img).all()
+    np.testing.assert_allclose(img[~covered], jp["render"][~covered], atol=1e-5)
+    # the covered pixels hold 65536 alpha T: float32 sums of values up to
+    # ~6e4 in another order, held relative to their size
+    np.testing.assert_allclose(img[covered], jp["render"][covered], rtol=1e-5, atol=1e-5)
+    assert img[covered][:, 1].max() > 1e3
+
+    img = t_out(cam, gs, bg, TSettings(backend="scan", **s), colors_precomp=cols)["render"]
+    assert not np.isnan(img).any()
+    np.testing.assert_array_equal(np.isinf(img).any(-1), covered)
+    assert np.isinf(img[covered][:, 1]).all()
+    np.testing.assert_allclose(img[~covered], jp["render"][~covered], atol=1e-5)
 
 
 # --------------------------------------------------------------------------
