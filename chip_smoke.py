@@ -63,9 +63,26 @@ Phases, in order; any failure exits nonzero:
     ``composite_bwd`` launched once per step and ``composite_infer`` once
     per evaluated view (each run's counts are reset at its start and
     printed on its last line). It prints it/s, the wall time, the growth
-    pause and the peak memory;
-11. a ``{"kernels": [...]}`` line, the card line, and last the
-    ``{"ok": true, "device": ...}`` line.
+    pause and the peak memory. Its runs pass ``--disable_viewer``;
+11. the serving surfaces (logged as phase 12), on the trained model of the
+    run before and on the 1M-gaussian bench scene: LPIPS with the
+    committed structure-test weights (``evidence/lpips_vgg_structure_
+    test.npz``, full VGG16 widths) on the card against the CPU on a
+    256x256 crop of a test render and its ground truth, of an image to
+    itself, TF32 off, ms per 1296x840 view, then ``python -m
+    gsjax_torch.metrics`` with the weights (a finite LPIPS for every
+    method and view); the SIBR bridge in process with a scripted client
+    (three 1920x1080 frames, bit for bit ``make_render_fn(as_uint8=True)``'s,
+    no pair dropped, one ``composite_infer`` launch each); the local viewer
+    in process (``/info``, 60 orbit frames at 1920x1080 over HTTP, p50 /
+    p90 latency, none dropping a pair, one launch each, and its cached
+    function's frame bit for bit a direct render's under the same probed
+    settings); then ``python -m gsjax_torch.render_bench --at_1080p
+    --views 8`` (exits 0, no pair dropped) and ``python -m
+    gsjax_torch.viewer_bench`` at 1920x1080 on the trained model;
+12. a ``{"kernels": [...]}`` line (``composite_infer``'s
+    ``launches_serving``: the bridge's and the viewer's launches), the
+    card line, and last the ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or gsjax. Exits nonzero with no result when CUDA is
 unavailable or the port's package is missing.
@@ -73,6 +90,7 @@ unavailable or the port's package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -132,6 +150,10 @@ PROBE_RTOL = 2e-5
 # pass costs the same (measured 1.024 on an NVIDIA H100 80GB HBM3, 700 W)
 EXP_LINEAR_TOL = 0.1
 SUBPROCESS_TIMEOUT_S = 600
+# LPIPS on the card against the CPU, relative: two float32 convolution
+# libraries (cuDNN with TF32 off, oneDNN) sum 4,608-term dot products in
+# other orders
+LPIPS_RTOL = 1e-4
 
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
@@ -809,9 +831,10 @@ def phase_probe(tile_starts):
     return worst, times
 
 
-def run_module(phase, args):
-    """``python -m <args>`` from the checkout, its output echoed; raises
-    unless it exits 0. Returns its standard output's lines."""
+def run_module(phase, args, env=None):
+    """``python -m <args>`` from the checkout (with ``env`` added to the
+    environment), its output echoed; raises unless it exits 0. Returns its
+    standard output's lines."""
     import torch
 
     torch.cuda.empty_cache()  # the subprocess shares the card
@@ -819,7 +842,7 @@ def run_module(phase, args):
     log(f"phase {phase}: {' '.join(cmd[2:])}")
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=SUBPROCESS_TIMEOUT_S)
+                         timeout=SUBPROCESS_TIMEOUT_S, env={**os.environ, **(env or {})})
     for line in res.stderr.splitlines()[-40:]:
         log(f"  | {line}")
     lines = res.stdout.splitlines()
@@ -872,7 +895,7 @@ def _train_run(phase, scene, model, device, args):
     """One ``python -m gsjax_torch.train`` run; returns its last line (the
     iterations, launch counts, wall time and peak memory) and its log."""
     lines = run_module(phase, ["gsjax_torch.train", "-s", scene, "-m", model, "--eval",
-                               "--device", device, *args])
+                               "--device", device, "--disable_viewer", *args])
     done = json.loads(lines[-1])
     if done.get("stage") != "done":
         raise AssertionError(f"train: last line {lines[-1]!r}")
@@ -880,12 +903,15 @@ def _train_run(phase, scene, model, device, args):
 
 
 def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
-                          capacity=32_768, iterations=600, resume=100, phase=11):
+                          capacity=32_768, iterations=600, resume=100, phase=11, workdir=None):
     """A training run as a user runs it (see the module docstring,
     phase 10); ``device``, the size and ``scene_args`` let it run small on
-    the CPU. Returns a summary dict of its numbers."""
+    the CPU. Its scene and model directories are made in ``workdir`` (a
+    temporary directory when None, removed at the end). Returns a summary
+    dict of its numbers and the trained model's directory."""
     log(f"phase {phase}: training run at {width}x{height}")
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         scene, model, model2 = (os.path.join(tmp, d) for d in ("scene", "model", "resumed"))
         run_module(phase, ["gsjax_torch.synthetic_scene", scene, "--width", str(width),
                            "--height", str(height), "--device", device, *scene_args])
@@ -972,7 +998,251 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
     log(f"  training run: every check passed ({len(checks)})")
     return {"wall_s": done["wall_s"], "it_per_s": progress[-1]["it_per_s"],
             "growth_pause_s": [r["pause_s"] for r in grows],
-            "peak_memory_gib": done["peak_memory_gib"], "psnr": psnr}
+            "peak_memory_gib": done["peak_memory_gib"], "psnr": psnr, "model": model}
+
+
+def sibr_message(cam, scaling_modifier=1.0, shs_python=False, train=True):
+    """The wire message a SIBR remote viewer sends for the host-side camera
+    ``cam``: the bridge's transform inverted (column-vector -> row-vector
+    matrices, the Y/Z column flips)."""
+    wv = np.asarray(cam.world_view, np.float32).T.copy()
+    wv[:, 1] *= -1
+    wv[:, 2] *= -1
+    fp = np.asarray(cam.full_proj, np.float32).T.copy()
+    fp[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+            "fov_y": cam.fov_y, "fov_x": cam.fov_x, "z_near": 0.01, "z_far": 100.0,
+            "shs_python": shs_python, "rot_scale_python": False, "keep_alive": False,
+            "scaling_modifier": scaling_modifier, "view_matrix": wv.flatten().tolist(),
+            "view_projection_matrix": fp.flatten().tolist()}
+
+
+def phase_lpips(device, model, iterations):
+    """Phase 12a: LPIPS with the structure-test weights (full VGG16
+    widths) on the card against the CPU on a 256x256 crop of one of the
+    trained model's test renders and its ground truth; a distance of an
+    image to itself; TF32 off; ms per full view; then the metrics CLI with
+    the weights, which must write a finite LPIPS for every method and view.
+    Returns (ms per view, the CLI's LPIPS)."""
+    import torch
+    from PIL import Image
+
+    from gsjax_torch.eval.lpips import load_weights, lpips
+
+    log("phase 12a: LPIPS (structure-test weights, full VGG16 widths)")
+    weights = os.path.join(HERE, "evidence", "lpips_vgg_structure_test.npz")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: LPIPS would move in its third decimal")
+    base = os.path.join(model, "test", f"ours_{iterations}")
+
+    def image(sub):
+        path = os.path.join(base, sub, "00000.png")
+        return torch.from_numpy(np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0)
+
+    render, gt = image("renders"), image("gt")
+    params = load_weights(weights, device)
+    h, w = render.shape[:2]  # the center: a corner can be background in both
+    crop = (slice(h // 2 - 128, h // 2 + 128), slice(w // 2 - 128, w // 2 + 128))
+    card = float(lpips(render[crop].to(device), gt[crop].to(device), params))
+    cpu = float(lpips(render[crop], gt[crop], load_weights(weights, "cpu")))
+    if cpu <= 0:
+        raise AssertionError(f"LPIPS: the crop's render equals its ground truth ({cpu})")
+    rel = abs(card - cpu) / cpu
+    self_d = float(lpips(render[crop].to(device), render[crop].to(device), params))
+    r, g = render.to(device), gt.to(device)
+    ms = time_cuda(lambda: lpips(r, g, params), 5)
+    log(f"  256x256 center crop: card {card:.7f}, CPU {cpu:.7f}, relative {rel:.3e}; lpips(a, a) "
+        f"{self_d:.3e}; {tuple(render.shape[:2])} view {ms:.2f} ms on the card (TF32 off)")
+    if not (rel <= LPIPS_RTOL and abs(self_d) <= 1e-6):
+        raise AssertionError(f"LPIPS: card vs CPU relative {rel:.3e} > {LPIPS_RTOL} or "
+                             f"lpips(a, a) {self_d:.3e}")
+
+    run_module(12, ["gsjax_torch.metrics", "-m", model, "--device", device],
+               env={"GSJAX_LPIPS_WEIGHTS": weights})
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(model, "per_view.json")) as f:
+        per_view = json.load(f)
+    n_views = len(os.listdir(os.path.join(base, "renders")))
+    for method, m in results.items():
+        views = per_view[method].get("LPIPS", {})
+        if not (np.isfinite(m.get("LPIPS", np.nan)) and len(views) == n_views
+                and all(np.isfinite(v) for v in views.values())):
+            raise AssertionError(f"metrics CLI: {method} has no finite LPIPS for each of "
+                                 f"its {n_views} views: {m}")
+    log(f"  metrics CLI: {results} ({n_views} views each)")
+    return ms, {k: v["LPIPS"] for k, v in results.items()}
+
+
+def phase_bridge(state, settings, device, w=1920, h=1080):
+    """Phase 12b: the SIBR bridge in process on the bench scene, a scripted
+    client on a thread asking for three 1920x1080 frames on one connection
+    (scaling_modifier 1.0, 0.5, and the SH python path). Each frame's bytes
+    must equal make_render_fn(as_uint8=True)'s for the decoded camera, bit
+    for bit, with no pair dropped, and the source path must come back; the
+    bridge's renders are composite_infer's launches. Returns (launches,
+    ms per frame as the client saw it)."""
+    import socket
+    import threading
+
+    import torch
+
+    from gsjax_torch.bench_scene import bench_camera
+    from gsjax_torch.ops import cuda_composite
+    from gsjax_torch.train.step import TrainConfig, make_render_fn
+    from gsjax_torch.viewer.network_gui import ViewerBridge, _camera_from_message
+
+    log(f"phase 12b: the SIBR bridge, 3 frames of the bench scene at {w}x{h}")
+    cam = bench_camera(w, h)
+    msgs = [sibr_message(cam), sibr_message(cam, 0.5), sibr_message(cam, shs_python=True)]
+    bridge = ViewerBridge(port=0, source_path="bench1080")
+    port = bridge.listener.getsockname()[1]
+    replies, times = [], []
+
+    def client():
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
+            f = s.makefile("rb")
+            for m in msgs:
+                payload = json.dumps(m).encode("utf-8")
+                t0 = time.perf_counter()
+                s.sendall(len(payload).to_bytes(4, "little") + payload)
+                img = f.read(m["resolution_x"] * m["resolution_y"] * 3)
+                n = int.from_bytes(f.read(4), "little")
+                replies.append((img, f.read(n).decode("ascii")))
+                times.append((time.perf_counter() - t0) * 1e3)
+
+    render_fn = make_render_fn(TrainConfig(settings=settings))  # float, as the loop's
+    torch.cuda.synchronize()
+    cuda_composite.composite_infer.launches = 0
+    t = threading.Thread(target=client)
+    t.start()
+    try:
+        for _ in range(2000):
+            bridge.poll(1, state, render_fn)  # one frame per poll: train is true
+            if not t.is_alive():
+                break
+            t.join(timeout=0.005)
+        t.join(timeout=60)
+    finally:
+        bridge.close()
+    launches = cuda_composite.composite_infer.launches
+    u8 = make_render_fn(TrainConfig(settings=settings), with_stats=True, as_uint8=True)
+    checks = {"three replies": len(replies) == 3 and not t.is_alive(),
+              "launches == frames": launches == len(msgs)}
+    for m, (img, path) in zip(msgs, replies):
+        rcam = _camera_from_message(m, device)
+        want, dropped = u8(state, rcam, torch.zeros(3, device=device), m["scaling_modifier"],
+                           shs_python=m["shs_python"])
+        got = np.frombuffer(img, np.uint8).reshape(h, w, 3)
+        tag = f"scale {m['scaling_modifier']}, shs_python {m['shs_python']}"
+        checks[f"{tag}: bit for bit"] = np.array_equal(got, want.cpu().numpy())
+        checks[f"{tag}: no pair dropped"] = int(dropped) == 0
+        checks[f"{tag}: source path"] = path == "bench1080"
+    log(f"  frames {['%.1f' % x for x in times]} ms at the client; composite_infer launches "
+        f"{launches}; checks {sum(checks.values())}/{len(checks)}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bridge: {failed}")
+    return launches, times
+
+
+def phase_local_viewer(state, device, frames=60, w=1920, h=1080, n=1_000_000):
+    """Phase 12c: the local web viewer in process on the bench scene at
+    1920x1080: /info, ``frames`` /render requests orbiting /info's center
+    at 2.2x its extent (the page's default), each view's pairs all kept;
+    one frame of the viewer's cached function against a direct
+    make_render_fn(with_stats=True) under the same probed settings, bit
+    for bit. Returns (launches, ms p50, ms p90, JPEG KB mean)."""
+    import urllib.request
+
+    import torch
+
+    from gsjax_torch.data.cameras import lookat_camera
+    from gsjax_torch.ops import cuda_composite
+    from gsjax_torch.train.step import TrainConfig, make_render_fn, quantize
+    from gsjax_torch.viewer.local_viewer import LocalViewer
+
+    log(f"phase 12c: the local viewer, {frames} frames of the bench scene at {w}x{h}")
+    viewer = LocalViewer(state, np.zeros(3, np.float32), port=0, device=device)
+    torch.cuda.synchronize()
+    cuda_composite.composite_infer.launches = 0
+    base = f"http://127.0.0.1:{viewer.start()}"
+    eyes, times, sizes = [], [], []
+    try:
+        with urllib.request.urlopen(f"{base}/info", timeout=120) as r:
+            info = json.loads(r.read())
+        c, rad = np.asarray(info["center"]), 2.2 * info["extent"]
+        for i in range(frames):
+            az, el = 0.6 + 2 * np.pi * i / frames, 0.35
+            eye = c + rad * np.array([np.cos(az) * np.cos(el), np.sin(az) * np.cos(el),
+                                      np.sin(el)])
+            eyes.append(eye)
+            q = (f"ex={eye[0]}&ey={eye[1]}&ez={eye[2]}&tx={c[0]}&ty={c[1]}&tz={c[2]}"
+                 f"&w={w}&h={h}&scale=1.0")
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{base}/render?{q}", timeout=300) as r:
+                sizes.append(len(r.read()))
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        viewer.stop()
+    launches = cuda_composite.composite_infer.launches
+    fn = viewer._fn_for(w, h)
+    s = fn.settings
+    direct = make_render_fn(TrainConfig(settings=s), with_stats=True)
+    bg = viewer.bg
+    dropped = []
+    for eye in eyes:
+        rc = lookat_camera(eye, c, (0, 0, 1), 1.1, w, h).to_render_camera(device)
+        dropped.append(int(direct(state, rc, bg)[1]))
+    rc = lookat_camera(eyes[0], c, (0, 0, 1), 1.1, w, h).to_render_camera(device)
+    img, _ = direct(state, rc, bg, 1.0)
+    same = torch.equal(fn(state, rc, bg, 1.0), quantize(img))
+    p50, p90 = (float(np.percentile(times[3:], q)) for q in (50, 90))
+    log(f"  /info {info['n_gaussians']} gaussians, center {np.round(c, 3).tolist()}, extent "
+        f"{info['extent']:.3f}; probed settings max_pairs {s.max_pairs}, max_tiles_per_gauss "
+        f"{s.max_tiles_per_gauss}, tier_frac {s.tier_frac}, expansion {s.expansion}")
+    log(f"  frame latency after 3 warm-up frames: p50 {p50:.1f} ms, p90 {p90:.1f} ms (first "
+        f"{times[0]:.0f} ms, with the probe); JPEG {np.mean(sizes) / 1024:.1f} KB; launches "
+        f"{launches}; pairs dropped {sum(dropped)}; cached function == direct: {same}")
+    checks = {f"{n} gaussians": info["n_gaussians"] == n,
+              "launches == frames": launches == frames,
+              "no view dropped a pair": sum(dropped) == 0,
+              "the cached function's frame bit for bit": same}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"local viewer: {failed}")
+    return launches, p50, p90, float(np.mean(sizes)) / 1024
+
+
+def phase_serving(device, model, iterations, settings):
+    """Phase 12: the serving surfaces. LPIPS and the metrics CLI, the SIBR
+    bridge and the local viewer in process on the bench scene, then the
+    render and viewer benches on the trained model. Returns the launches
+    of composite_infer by the bridge and the viewer."""
+    from gsjax_torch.bench_scene import toy_state
+
+    t0 = time.perf_counter()
+    lpips_ms, _ = phase_lpips(device, model, iterations)
+    state = toy_state(1_000_000, 1 << 20, log_scale=-5.2, device=device)
+    bridge_launches, _ = phase_bridge(state, settings, device)
+    viewer_launches, *_ = phase_local_viewer(state, device)
+    del state
+
+    result = json.loads(run_module(12, ["gsjax_torch.render_bench", "-m", model, "--at_1080p",
+                                        "--views", "8", "--device", device])[-1])
+    if result["extra"]["num_dropped"] != 0 or not result["value"] > 0:
+        raise AssertionError(f"render_bench: {result}")
+    log(f"  render_bench: {result['value']} frames/s at {result['extra']['resolution']} "
+        f"({result['extra']['n_gaussians']} gaussians, max_pairs "
+        f"{result['extra']['max_pairs']}, on {result['extra']['device']})")
+    lines = run_module(12, ["gsjax_torch.viewer_bench", "-m", model, "--width", "1920",
+                            "--height", "1080", "--frames", "60", "--port", "0",
+                            "--device", device])
+    report = json.loads("\n".join(lines[lines.index("{"):]))
+    log(f"  viewer_bench: p50 {report['p50_ms']} ms, p90 {report['p90_ms']} ms, "
+        f"{report['fps_mean']} frames/s, JPEG {report['jpeg_kb_mean']} KB")
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s; LPIPS {lpips_ms:.2f} ms per view")
+    return bridge_launches + viewer_launches
 
 
 def main() -> int:
@@ -1031,7 +1301,9 @@ def main() -> int:
                     for k, t in probe_times.items()},
     })
     phase_bench()
-    phase_training_run(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = phase_training_run(device, workdir=tmp)
+        entries[0]["launches_serving"] = phase_serving(device, run["model"], 600, settings)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

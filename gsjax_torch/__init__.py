@@ -13,9 +13,14 @@ Package layout (as in gsjax)
 ``gsjax_torch.data``    COLMAP/Blender readers, PLY io, camera containers
 ``gsjax_torch.ops``     the renderer: projection, tile binning, compositing
                         (scan in torch, inference kernel in CUDA)
-``gsjax_torch.models``  fixed-capacity Gaussian state, PLY interchange
-``gsjax_torch.train``   render helpers, budget probe, scene loading
-``gsjax_torch.render``  offline-render CLI (``python -m gsjax_torch.render``)
+``gsjax_torch.models``  fixed-capacity Gaussian state, densification, PLY
+``gsjax_torch.train``   train step, loop, checkpoints, budget probe, scene
+                        loading; the training CLI (``python -m gsjax_torch.train``)
+``gsjax_torch.eval``    PSNR, LPIPS (VGG16, gated weights)
+``gsjax_torch.viewer``  the SIBR remote-viewer bridge, the local web viewer
+``gsjax_torch.render``  offline-render CLI (``python -m gsjax_torch.render``);
+                        beside it ``metrics``, ``full_eval``, ``view``,
+                        ``render_bench``, ``viewer_bench``, ``bench``, ``probes``
 
 Entry points that create tensors take ``device=`` and default to
 ``"cuda"``; they raise when CUDA is absent. Tests pass ``device="cpu"``.

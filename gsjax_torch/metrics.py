@@ -2,10 +2,10 @@
 the root ``metrics.py`` (reference: metrics.py:36-103), with the same
 flags plus ``--device`` (default ``cuda``).
 
-Walks ``<model>/test/<method>/{renders,gt}``, computes SSIM and PSNR,
-and writes ``results.json`` and ``per_view.json`` with gsjax's keys.
-LPIPS is not ported (ROADMAP Queue 1 item 4): no weights are needed or
-fetched, and no LPIPS key is written.
+Walks ``<model>/test/<method>/{renders,gt}``, computes SSIM / PSNR (and
+LPIPS-vgg when its gated weights are present — see
+gsjax_torch/eval/lpips.py), and writes ``results.json`` and
+``per_view.json`` with gsjax's keys.
 
 Example:
     python -m gsjax_torch.metrics -m output/lego
@@ -35,15 +35,23 @@ def read_images(renders_dir, gt_dir):
 
 
 def evaluate(model_paths, device="cuda"):
-    """reference metrics.py:36-93; SSIM and PSNR on ``device``."""
+    """reference metrics.py:36-93; every metric on ``device``."""
     import torch
 
+    from gsjax_torch.eval import lpips as lpips_mod
     from gsjax_torch.eval.metrics import psnr
     from gsjax_torch.train.loss import ssim
     from gsjax_torch.utils.system import resolve_device
 
     dev = resolve_device(device)
-    print("LPIPS is not ported (ROADMAP Queue 1 item 4); reporting SSIM/PSNR only.")
+    lpips_params = None
+    if lpips_mod.available():
+        lpips_params = lpips_mod.load_weights(device=dev)
+    else:
+        print(
+            "LPIPS weights unavailable (no egress in this environment); "
+            "reporting SSIM/PSNR only. See gsjax_torch/eval/lpips.py."
+        )
 
     full_results = {}
     for model_path in model_paths:
@@ -59,20 +67,28 @@ def evaluate(model_paths, device="cuda"):
                 if not names:
                     print("  (no rendered views — skipping)")
                     continue
-                ssims, psnrs = [], []
+                ssims, psnrs, lpipss = [], [], []
                 with torch.no_grad():
                     for r, g in zip(renders, gts):
                         rt, gt = torch.from_numpy(r).to(dev), torch.from_numpy(g).to(dev)
                         ssims.append(ssim(rt, gt))
                         psnrs.append(psnr(rt, gt))
+                        if lpips_params is not None:
+                            lpipss.append(lpips_mod.lpips(rt, gt, lpips_params))
                 ssims = torch.stack(ssims).tolist()
                 psnrs = torch.stack(psnrs).tolist()
+                lpipss = torch.stack(lpipss).tolist() if lpipss else []
                 print(f"  SSIM : {np.mean(ssims):.7f}")
                 print(f"  PSNR : {np.mean(psnrs):.7f}")
+                if lpipss:
+                    print(f"  LPIPS: {np.mean(lpipss):.7f}")
                 full_dict[method] = {"SSIM": float(np.mean(ssims)),
                                      "PSNR": float(np.mean(psnrs))}
                 per_view[method] = {"SSIM": dict(zip(names, map(float, ssims))),
                                     "PSNR": dict(zip(names, map(float, psnrs)))}
+                if lpipss:
+                    full_dict[method]["LPIPS"] = float(np.mean(lpipss))
+                    per_view[method]["LPIPS"] = dict(zip(names, map(float, lpipss)))
             with open(os.path.join(model_path, "results.json"), "w") as f:
                 json.dump(full_dict, f, indent=2)
             with open(os.path.join(model_path, "per_view.json"), "w") as f:

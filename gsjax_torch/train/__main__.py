@@ -6,13 +6,16 @@ versions). Example:
 
     python -m gsjax_torch.train -s /data/nerf_synthetic/lego --eval
 
-Not ported, each refused when asked for: ``--web_viewer`` (ROADMAP Queue 1
-item 5, the viewer) and ``--multihost`` / ``--dist_*`` / ``--data_shards``
-/ ``--gauss_shards`` > 1 (item 7, ``parallel/*``). The SIBR viewer bridge
-is not ported either: the run goes on as gsjax's does when its bridge
-cannot bind. On its last line the CLI prints one JSON object with the
-iterations run, the compositing kernels' launch counts over the run, its
-wall time and, on CUDA, the peak device memory.
+As gsjax's, the run serves the SIBR remote-viewer bridge on ``--ip`` /
+``--port`` unless ``--disable_viewer`` is given (a port it cannot bind
+prints "viewer bridge disabled" and training goes on; the bridge runs one
+step per dispatch), and ``--web_viewer PORT`` serves the live state to a
+browser (``gsjax_torch.viewer.local_viewer``). Not ported, each refused
+when asked for: ``--multihost`` / ``--dist_*`` / ``--data_shards`` /
+``--gauss_shards`` > 1 (ROADMAP Queue 1 item 7, ``parallel/*``). On its
+last line the CLI prints one JSON object with the iterations run, the
+compositing kernels' launch counts over the run, its wall time and, on
+CUDA, the peak device memory.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import contextlib
 import json
 import sys
 import time
+
+import numpy as np
 
 
 def build_parser():
@@ -44,7 +49,8 @@ def build_parser():
                         help="initial gaussian buffer capacity (grows 2x as needed)")
     parser.add_argument("--disable_viewer", action="store_true")
     parser.add_argument("--web_viewer", type=int, default=None, metavar="PORT",
-                        help="not ported (ROADMAP Queue 1 item 5)")
+                        help="serve a live local web viewer of the training run "
+                             "on this port (0 = any free port)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="write a torch.profiler trace of the first 100 "
@@ -79,9 +85,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
-    if args.web_viewer is not None:
-        raise NotImplementedError("--web_viewer is not ported: ROADMAP Queue 1 item 5 "
-                                  "(the viewer)")
     if args.multihost or any(getattr(args, f"dist_{k}") is not None
                              for k in ("coordinator", "num_processes", "process_id")):
         raise NotImplementedError("--multihost / --dist_* are not ported: ROADMAP Queue 1 "
@@ -103,20 +106,61 @@ def main(argv=None):
     opt = extract(OptimizationParams, args)
     pipe = extract(PipelineParams, args)
     print(f"Optimizing {model.model_path or '(auto model dir)'}")
-    if not args.disable_viewer:
-        print("viewer bridge disabled: the SIBR viewer bridge is not ported "
-              "(ROADMAP Queue 1 item 5)")
 
     profile = contextlib.ExitStack()
-    passive_callback = None
+    passives = []
     if args.profile:
         from gsjax_torch.utils.profiling import trace
 
         profile.enter_context(trace(args.profile))
 
-        def passive_callback(iteration, state, render_fn):
+        def write_trace(iteration, state, render_fn):
             if iteration > 100:
                 profile.close()  # writes the trace; a no-op once closed
+
+        passives.append(write_trace)
+
+    viewers = contextlib.ExitStack()  # closed when training returns or raises
+    gui_callback = None
+    if not args.disable_viewer:
+        from gsjax_torch.viewer.network_gui import ViewerBridge
+
+        try:
+            bridge = ViewerBridge(args.ip, args.port, model.source_path,
+                                  max_iterations=args.iterations)
+            viewers.callback(bridge.close)
+            gui_callback = bridge.poll
+        except OSError as e:
+            print(f"viewer bridge disabled: {e}")
+
+    if args.web_viewer is not None:
+        # live local web viewer of the training run (headless-friendly
+        # SIBR-remote analogue); lazily started once state exists. The
+        # state is updated in place, so this thread holds the render lock
+        # through each iteration and lets queued renders run between two.
+        holder = {}
+
+        def web_viewer(iteration, state, render_fn):
+            v = holder.get("v")
+            if v is None:
+                from gsjax_torch.viewer.local_viewer import LocalViewer
+
+                v = LocalViewer(state, np.full(3, 1.0 if model.white_background else 0.0,
+                                               np.float32),
+                                port=args.web_viewer, iteration=iteration, device=device)
+                v.hold()
+                port = v.start()
+                print(f"web viewer: http://127.0.0.1:{port}/", flush=True)
+                holder["v"] = v
+                viewers.callback(v.stop)
+                viewers.callback(v.release)  # runs first: a queued render finishes
+            v.between_iterations(state, iteration)
+
+        passives.append(web_viewer)
+
+    def passive_callback(iteration, state, render_fn):
+        for fn in passives:
+            fn(iteration, state, render_fn)
 
     kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd)
     for k in kernels:
@@ -124,7 +168,7 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    with profile:
+    with viewers, profile:
         scene, state = training(
             model, opt, pipe,
             testing_iterations=args.test_iterations,
@@ -133,7 +177,8 @@ def main(argv=None):
             start_checkpoint=args.start_checkpoint,
             quiet=args.quiet,
             capacity=args.capacity,
-            passive_callback=passive_callback,
+            gui_callback=gui_callback,
+            passive_callback=passive_callback if passives else None,
             seed=args.seed,
             steps_per_dispatch=args.steps_per_dispatch,
             data_shards=args.data_shards,

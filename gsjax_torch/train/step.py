@@ -78,6 +78,13 @@ def render_state(
     )
 
 
+def quantize(img: torch.Tensor) -> torch.Tensor:
+    """A float [0, 1] image as uint8, rounding half up: the one
+    quantization of every served frame (``make_render_fn(as_uint8=True)``,
+    the SIBR bridge), so frames are bit-identical whichever path made them."""
+    return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
 def make_render_fn(
     cfg: TrainConfig, with_stats: bool = False, as_uint8: bool = False
 ):
@@ -121,11 +128,12 @@ def make_render_fn(
         )
         img = out["render"]
         if as_uint8:
-            img = torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+            img = quantize(img)
         if with_stats:
             return img, out["num_dropped"]
         return img
 
+    render_fn.settings = cfg.settings  # the budgets it renders with
     return render_fn
 
 

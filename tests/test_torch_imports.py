@@ -27,7 +27,10 @@ def test_port_imports_without_jax_or_gsjax():
             "gsjax_torch.train.loop", "gsjax_torch.models.densify",
             "gsjax_torch.train.checkpoint", "gsjax_torch.train.__main__",
             "gsjax_torch.metrics", "gsjax_torch.full_eval",
-            "gsjax_torch.synthetic_scene"} <= set(mods)
+            "gsjax_torch.synthetic_scene", "gsjax_torch.eval.lpips",
+            "gsjax_torch.viewer", "gsjax_torch.viewer.network_gui",
+            "gsjax_torch.viewer.local_viewer", "gsjax_torch.view",
+            "gsjax_torch.render_bench", "gsjax_torch.viewer_bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -83,17 +86,22 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("entry", ["train", "metrics", "full_eval", "synthetic_scene",
-                                   "training", "scene"])
+                                   "training", "scene", "view", "render_bench",
+                                   "viewer_bench", "LocalViewer", "viewer_from_model",
+                                   "lpips_weights"])
 def test_training_entry_points_refuse_without_cuda(entry, tmp_path):
-    """The training slice's entry points default to CUDA and raise without
-    it, before they read or write anything."""
+    """The training and serving slices' entry points default to CUDA and
+    raise without it, before they read or write anything."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults would run")
-    from gsjax_torch import full_eval, metrics, synthetic_scene
+    from gsjax_torch import full_eval, metrics, render_bench, synthetic_scene, view, viewer_bench
+    from gsjax_torch.eval.lpips import load_weights
+    from gsjax_torch.models.gaussians import create_empty
     from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams
     from gsjax_torch.train.__main__ import main as train_main
     from gsjax_torch.train.loop import training
     from gsjax_torch.train.scene import Scene
+    from gsjax_torch.viewer import LocalViewer, viewer_from_model
 
     missing = str(tmp_path / "missing")
     calls = {
@@ -105,6 +113,13 @@ def test_training_entry_points_refuse_without_cuda(entry, tmp_path):
                                      OptimizationParams(), PipelineParams()),
         "scene": lambda: Scene(ModelParams(source_path=os.path.join(
             ROOT, "tests", "data_missing"), model_path=str(tmp_path / "m"))),
+        "view": lambda: view.main(["-m", missing]),
+        "render_bench": lambda: render_bench.main(["-m", missing]),
+        "viewer_bench": lambda: viewer_bench.main(["-m", missing, "--port", "0"]),
+        "LocalViewer": lambda: LocalViewer(create_empty(8, device="cpu"), [0, 0, 0], port=0),
+        "viewer_from_model": lambda: viewer_from_model(missing),
+        "lpips_weights": lambda: load_weights(os.path.join(ROOT, "evidence",
+                                                           "lpips_vgg_structure_test.npz")),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

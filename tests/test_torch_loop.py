@@ -255,7 +255,8 @@ def test_train_cli_runs_and_refuses_what_is_not_ported(scene_dir, tmp_path, capf
                              "--densify_from_iter", "9", "--densification_interval", "10",
                              "--densify_until_iter", "15", "--test_iterations", "20",
                              "--checkpoint_iterations", "10", "--capacity", "64",
-                             "--device", "cpu", "--quiet", "--steps_per_dispatch", "5"])
+                             "--device", "cpu", "--quiet", "--steps_per_dispatch", "5",
+                             "--disable_viewer"])
     finally:
         sys.stdout = stdout  # safe_state wraps stdout
     last = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
@@ -266,49 +267,68 @@ def test_train_cli_runs_and_refuses_what_is_not_ported(scene_dir, tmp_path, capf
     for name in ("chkpnt10.npz", os.path.join("point_cloud", "iteration_20", "point_cloud.ply")):
         assert os.path.exists(os.path.join(out, name))
     assert any(r.get("event") == "densify" for r in _log(out))
-    for flags, item in ((["--web_viewer", "0"], "item 5"), (["--multihost"], "item 7"),
-                        (["--dist_coordinator", "localhost:1"], "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            main(["-s", scene_dir, "-m", out, "--device", "cpu"] + flags)
+    # --web_viewer is ported (tests/test_torch_viewer.py); parallel/* is not
+    for flags in (["--multihost"], ["--dist_coordinator", "localhost:1"]):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            main(["-s", scene_dir, "-m", out, "--device", "cpu", "--disable_viewer"] + flags)
     with pytest.raises(NotImplementedError, match="item 7"):
         main(["-s", scene_dir, "-m", str(tmp_path / "s"), "--device", "cpu",
-              "--data_shards", "2"])
+              "--disable_viewer", "--data_shards", "2"])
     sys.stdout = stdout
 
 
-def test_metrics_cli_matches_gsjax(tmp_path):
+def test_metrics_cli_matches_gsjax(tmp_path, monkeypatch):
     """The same results.json / per_view.json keys and values as the root
-    metrics.py (SSIM and PSNR; LPIPS is not ported and its weights are not
-    available here either)."""
+    metrics.py: SSIM, PSNR and LPIPS, its gated weights found through
+    ``$GSJAX_LPIPS_WEIGHTS`` (full-width synthetic weights, 32x32 views)."""
+    _metrics_clis_agree(tmp_path, monkeypatch, with_lpips=True)
+
+
+def test_metrics_cli_without_lpips_weights(tmp_path, monkeypatch):
+    """Without the weights both CLIs report SSIM and PSNR only."""
+    _metrics_clis_agree(tmp_path, monkeypatch, with_lpips=False)
+
+
+def _metrics_clis_agree(tmp_path, monkeypatch, with_lpips):
     from PIL import Image
 
     import metrics as j_metrics
     from gsjax_torch.metrics import main
+    from test_lpips import synth_params
 
     rng = np.random.default_rng(16)
+    weights = str(tmp_path / "lpips_vgg.npz")
+    if with_lpips:
+        np.savez(weights, **{k: np.asarray(v) for k, v in synth_params(rng).items()})
+    monkeypatch.setenv("GSJAX_LPIPS_WEIGHTS", weights)
+    shape = (32, 32, 3) if with_lpips else (40, 56, 3)
+    model = tmp_path / "model"
     for method in ("ours_7", "ours_30"):
         for sub in ("renders", "gt"):
-            os.makedirs(tmp_path / "test" / method / sub)
+            os.makedirs(model / "test" / method / sub)
         for i in range(3):
-            gt = rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)
+            gt = rng.integers(0, 256, shape, dtype=np.uint8)
             noisy = np.clip(gt + rng.normal(0, 12, gt.shape), 0, 255).astype(np.uint8)
-            Image.fromarray(gt).save(tmp_path / "test" / method / "gt" / f"{i:05d}.png")
-            Image.fromarray(noisy).save(tmp_path / "test" / method / "renders" / f"{i:05d}.png")
-    j_metrics.evaluate([str(tmp_path)])
-    want = {n: json.loads((tmp_path / n).read_text()) for n in ("results.json", "per_view.json")}
-    got_ret = main(["-m", str(tmp_path), "--device", "cpu"])
-    got = {n: json.loads((tmp_path / n).read_text()) for n in ("results.json", "per_view.json")}
-    assert got_ret == {str(tmp_path): got["results.json"]}
+            Image.fromarray(gt).save(model / "test" / method / "gt" / f"{i:05d}.png")
+            Image.fromarray(noisy).save(model / "test" / method / "renders" / f"{i:05d}.png")
+    j_metrics.evaluate([str(model)])
+    want = {n: json.loads((model / n).read_text()) for n in ("results.json", "per_view.json")}
+    got_ret = main(["-m", str(model), "--device", "cpu"])
+    got = {n: json.loads((model / n).read_text()) for n in ("results.json", "per_view.json")}
+    assert got_ret == {str(model): got["results.json"]}
     assert got["results.json"].keys() == want["results.json"].keys() == {"ours_7", "ours_30"}
+    keys = {"SSIM", "PSNR", "LPIPS"} if with_lpips else {"SSIM", "PSNR"}
     for method, m in want["results.json"].items():
-        assert got["results.json"][method].keys() == m.keys() == {"SSIM", "PSNR"}
+        assert got["results.json"][method].keys() == m.keys() == keys
         for k, v in m.items():
-            # float32 SSIM / PSNR from two implementations of one formula
-            assert got["results.json"][method][k] == pytest.approx(v, rel=1e-5)
+            # float32 SSIM / PSNR from two implementations of one formula;
+            # LPIPS through two float32 convolution libraries
+            rel = 1e-4 if k == "LPIPS" else 1e-5
+            assert got["results.json"][method][k] == pytest.approx(v, rel=rel)
             views = want["per_view.json"][method][k]
             assert got["per_view.json"][method][k].keys() == views.keys()
             for name, x in views.items():
-                assert got["per_view.json"][method][k][name] == pytest.approx(x, rel=1e-5)
+                assert got["per_view.json"][method][k][name] == pytest.approx(x, rel=rel)
 
 
 def test_full_eval_runs_the_port_s_clis(monkeypatch):
