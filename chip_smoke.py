@@ -80,8 +80,34 @@ Phases, in order; any failure exits nonzero:
     settings); then ``python -m gsjax_torch.render_bench --at_1080p
     --views 8`` (exits 0, no pair dropped) and ``python -m
     gsjax_torch.viewer_bench`` at 1920x1080 on the trained model;
-12. a ``{"kernels": [...]}`` line (``composite_infer``'s
-    ``launches_serving``: the bridge's and the viewer's launches), the
+12. the sharded path (logged as phase 13), each rank a process started
+    through the port's launcher (``parallel.multihost.spawn_ranks``) with a
+    timeout: (13a) two ranks sharing the card over gloo, the 1M-gaussian
+    1080p scene at phases 4-5's budgets with the grid expansion — on each
+    rank's strip (its bins, the gathered splats, ``means2d`` moved up by the
+    strip's origin) composite_infer, composite_fwd and composite_bwd against
+    their plain versions as in phase 3, the sharded render of the 4 poses
+    against make_render_fn (max |diff| <= 3e-5) and, under the compact
+    expansion, within SHARD_TIE_SHARE of the pixels, 4 steps of
+    make_sharded_train_step against 4 of make_train_step (loss and l1, the
+    first step's gradients, every parameter, the accumulated screen-space
+    gradient, denom and max_radii2d; see the tolerances below), one step
+    through the a2a exchange (nothing dropped, the same loss) and a data=2
+    step (the loss the mean of the two cameras'), composite_infer once per
+    rank per frame and composite_fwd / composite_bwd once per rank per step;
+    (13b) the same steps on one rank over NCCL, its first step bit for bit
+    the single-device step's at every stage (``grad_chain``); (13c) ``python
+    -m gsjax_torch.train --gauss_shards 2`` on two ranks on the scene of
+    phase 11, stopped at 300 iterations: test PSNR and the counts after each
+    densification against phase 11's run at 300, the kernels once per rank
+    per step; (13d) ``python -m gsjax_torch.train_multiscene`` with that
+    scene under two model paths on two ranks, 100 iterations: finite losses,
+    the two snapshots equal; (13e) ``python -m gsjax_torch.scaling_bench``
+    at gauss 1 (NCCL) and 2 (gloo), with its shared-card note;
+13. a ``{"kernels": [...]}`` line (``composite_infer``'s
+    ``launches_serving``: the bridge's and the viewer's launches; rows 1-3's
+    ``launches_sharded``: 13a's counted launches over both ranks, and
+    ``max_abs_err_sharded``: their error on a rank's strip), the
     card line, and last the ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or gsjax. Exits nonzero with no result when CUDA is
@@ -150,6 +176,45 @@ PROBE_RTOL = 2e-5
 # pass costs the same (measured 1.024 on an NVIDIA H100 80GB HBM3, 700 W)
 EXP_LINEAR_TOL = 0.1
 SUBPROCESS_TIMEOUT_S = 600
+# The sharded path against the single-device one, gsjax's tolerances
+# (tests/test_parallel.py:55 and :76-96): the image; loss and l1; every
+# parameter after the steps; the accumulated screen-space gradient; denom
+# and max_radii2d equal.
+SHARD_IMG_ATOL = 3e-5
+SHARD_LOSS_RTOL = 1e-5
+SHARD_PARAM_TOL = (2e-5, 1e-3)  # (atol, rtol)
+SHARD_ACCUM_TOL = (1e-4, 1e-3)
+SHARD_STEPS = 4
+# One rank (13b) sums every gradient as the single-device step does: its
+# first step is held bit for bit at every stage (chip_smoke.grad_chain) and
+# its parameters to SHARD_PARAM_TOL with nothing allowed beyond. Two ranks
+# (13a) reassociate a gaussian's gradient (each strip sums its pairs, the
+# all-gather's backward adds the strips), and an Adam step moves a
+# parameter by about its lr whatever the gradient's size, so a gradient at
+# rounding level can take opposite signs in the two paths. Such elements
+# may pass SHARD_PARAM_TOL if they are at most SHARD_FLIP_SHARE of a
+# parameter's elements and each within SHARD_FLIP_LR lr over the steps.
+# Measured on an NVIDIA H100 80GB HBM3, 700 W, after 4 steps: 1 of the
+# 3,145,728 features_dc elements (0.37 lr), 15 of the 47,185,920
+# features_rest (0.38 lr), 3 of the 4,194,304 rotation elements (0.57 lr):
+# a share of at most 7.2e-7. The limits are about 14x and 3.5x that.
+SHARD_FLIP_SHARE = 1e-5
+SHARD_FLIP_LR = 2.0
+# The sharded render under the compact expansion (the default) against the
+# single-device one: the compact sort breaks ties of equal depth keys by a
+# count partition that a strip's clipped counts reorder, which moves a
+# pixel where two such pairs overlap by a whole blend. At most this share
+# of the pixels may be off by more than SHARD_IMG_ATOL. Measured on an
+# NVIDIA H100 80GB HBM3, 700 W, at bench1080: 1,725-2,383 of 2,073,600
+# pixels a pose (at most 1.15e-3, max |diff| 0.042); the limit is about
+# 4x that.
+SHARD_TIE_SHARE = 5e-3
+SHARD_TIMEOUT_S = 600
+# the sharded training run against the single-rank one at the same
+# iteration: test PSNR within 0.3 dB, the count after each densification
+# within 1% (float reassociation can flip a threshold decision)
+SHARD_PSNR_DB = 0.3
+SHARD_COUNT_REL = 0.01
 # LPIPS on the card against the CPU, relative: two float32 convolution
 # libraries (cuDNN with TF32 off, oneDNN) sum 4,608-term dot products in
 # other orders
@@ -336,6 +401,38 @@ def phase_compare(device):
     return (worst, err_f, err_b), bins.tile_start
 
 
+def bench_scene(device, n, capacity, w, h):
+    """The bench scene (``bench_scene.toy_state``, log scale -5.2) and the
+    4 poses' render cameras."""
+    from gsjax_torch.bench_scene import bench_camera, toy_state
+
+    state = toy_state(n, capacity, log_scale=-5.2, device=device)
+    return state, [bench_camera(w, h, yaw, shift).to_render_camera(device)
+                   for yaw, shift in POSES]
+
+
+def bench_settings(state, rcams, max_pairs=BENCH_MAX_PAIRS):
+    """The bench scene's budgets: the per-gaussian tile cap sized from the
+    model's footprints, as render.py's budget probe does (the widest
+    gaussians of this scene span more than 16 tiles, and inference must
+    drop nothing), the compact expansion and ``max_pairs``."""
+    import torch
+
+    from gsjax_torch.models.gaussians import activated
+    from gsjax_torch.ops.projection import preprocess
+    from gsjax_torch.ops.rasterize import RasterizeSettings
+
+    with torch.no_grad():
+        touched = [preprocess(*activated(state), rc, 3, active_mask=state.active).tiles_touched
+                   for rc in rcams]
+    mt_need = max(int(t.max()) for t in touched)
+    pairs_need = max(int(t.sum()) for t in touched)
+    mt = max(16, 1 << (mt_need - 1).bit_length())
+    log(f"  footprint probe: widest gaussian {mt_need} tiles -> max_tiles_per_gauss "
+        f"{mt}; pairs needed {pairs_need} of the budget {max_pairs}")
+    return RasterizeSettings(max_pairs=max_pairs, expansion="compact", max_tiles_per_gauss=mt)
+
+
 def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
               max_pairs=BENCH_MAX_PAIRS):
     """The 1M-gaussian 1080p scene through make_render_fn, and the three
@@ -345,7 +442,6 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     and settings, and the first frame's ``tile_start``."""
     import torch
 
-    from gsjax_torch.bench_scene import bench_camera, toy_state
     from gsjax_torch.models.gaussians import activated
     from gsjax_torch.ops import cuda_composite
     from gsjax_torch.ops.binning import build_tile_bins
@@ -355,28 +451,14 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         composite_infer, composite_infer_plain, pack_gauss_attrs, reduce_pair_grads,
     )
     from gsjax_torch.ops.projection import num_tiles, preprocess
-    from gsjax_torch.ops.rasterize import RasterizeSettings
     from gsjax_torch.train.step import TrainConfig, make_render_fn
     from gsjax_torch.utils.profiling import bwd_work, composite_work
 
     log(f"phase 4: main path, {n} gaussians at {w}x{h}")
-    state = toy_state(n, capacity, log_scale=-5.2, device=device)
-    rcams = [bench_camera(w, h, yaw, shift).to_render_camera(device)
-             for yaw, shift in POSES]
+    state, rcams = bench_scene(device, n, capacity, w, h)
     bg = torch.zeros(3, device=device)
-    # size the per-gaussian tile cap from the model's footprints, as
-    # render.py's budget probe does: the widest gaussians of this scene
-    # span more than 16 tiles, and inference must drop nothing
-    with torch.no_grad():
-        touched = [preprocess(*activated(state), rc, 3, active_mask=state.active).tiles_touched
-                   for rc in rcams]
-    mt_need = max(int(t.max()) for t in touched)
-    pairs_need = max(int(t.sum()) for t in touched)
-    mt = max(16, 1 << (mt_need - 1).bit_length())
-    log(f"  footprint probe: widest gaussian {mt_need} tiles -> max_tiles_per_gauss "
-        f"{mt}; pairs needed {pairs_need} of the budget {max_pairs}")
-    settings = RasterizeSettings(max_pairs=max_pairs, expansion="compact",
-                                 max_tiles_per_gauss=mt)
+    settings = bench_settings(state, rcams, max_pairs)
+    mt = settings.max_tiles_per_gauss
     render_fn = make_render_fn(TrainConfig(settings=settings), with_stats=True)
     for rc in rcams:  # warm-up, outside the counted run
         render_fn(state, rc, bg)
@@ -998,7 +1080,9 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
     log(f"  training run: every check passed ({len(checks)})")
     return {"wall_s": done["wall_s"], "it_per_s": progress[-1]["it_per_s"],
             "growth_pause_s": [r["pause_s"] for r in grows],
-            "peak_memory_gib": done["peak_memory_gib"], "psnr": psnr, "model": model}
+            "peak_memory_gib": done["peak_memory_gib"], "psnr": psnr, "model": model,
+            "scene": scene, "schedule": schedule, "capacity": capacity,
+            "densify": {r["iter"]: r["num_active"] for r in dens}}
 
 
 def sibr_message(cam, scaling_modifier=1.0, shs_python=False, train=True):
@@ -1245,6 +1329,484 @@ def phase_serving(device, model, iterations, settings):
     return bridge_launches + viewer_launches
 
 
+def _clone_state(state):
+    import dataclasses
+
+    return dataclasses.replace(
+        state, params={k: v.detach().clone() for k, v in state.params.items()},
+        active=state.active.clone(), max_radii2d=state.max_radii2d.clone(),
+        xyz_grad_accum=state.xyz_grad_accum.clone(), denom=state.denom.clone())
+
+
+def _close(name, got, want, atol, rtol):
+    """max |got - want|; raises unless every element is within atol + rtol |want|."""
+    d = (got - want).abs()
+    bad = int((d > atol + rtol * want.abs()).sum())
+    mx = float(d.max()) if d.numel() else 0.0
+    if bad:
+        raise AssertionError(f"{name}: {bad} elements beyond atol {atol} + rtol {rtol} "
+                             f"(max |diff| {mx:.3e})")
+    return mx
+
+
+def _close_adam(name, got, want, lr):
+    """:func:`_close` with SHARD_PARAM_TOL, forgiving the sign-flipped
+    Adam updates of rounding-level gradients (see SHARD_FLIP_SHARE)."""
+    atol, rtol = SHARD_PARAM_TOL
+    d = (got - want).abs()
+    off = d > atol + rtol * want.abs()
+    n_off, mx = int(off.sum()), float(d.max())
+    worst = float(d[off].max()) if n_off else 0.0
+    if n_off > SHARD_FLIP_SHARE * d.numel() or worst > SHARD_FLIP_LR * lr:
+        raise AssertionError(f"{name}: {n_off} of {d.numel()} elements beyond atol {atol} + "
+                             f"rtol {rtol}, the worst {worst:.3e} (lr {lr:.3e})")
+    return {"max_abs_diff": mx, "beyond_tol": n_off, "worst_in_lr": worst / lr}
+
+
+def _tie_diff(img, ref, dropped):
+    """The sharded compact render against the single-device one: max
+    |diff|, and the pixels beyond SHARD_IMG_ATOL (those where pairs of equal
+    depth keys blend in another order); raises past SHARD_TIE_SHARE."""
+    d = (img - ref).abs().amax(-1)
+    r = {"max_abs_diff": float(d.max()), "pixels_beyond": int((d > SHARD_IMG_ATOL).sum()),
+         "pixels": d.numel(), "dropped": dropped}
+    beyond = r["pixels_beyond"] > SHARD_TIE_SHARE * d.numel()
+    if dropped or beyond or not bool(img.isfinite().all()):
+        raise AssertionError(f"compact sharded render against the single-device one: {r}")
+    return r
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _bits(a, b):
+    """How many elements of two tensors differ, and the largest |difference|."""
+    d = (a.double() - b.double()).abs()
+    return {"differ": int((a != b).sum()), "max_abs": float(d.max()) if d.numel() else 0.0}
+
+
+def grad_chain(tx, mesh, cams, images, cfg, state0, cam):
+    """One sharded step and one single-device step from ``state0`` on camera
+    ``cam``, compared stage by stage bit for bit: the compositing kernels'
+    inputs (the splat fields), their image (tile colors), d loss / d image
+    (the tile colors' cotangent), the kernels' backward (the splat fields'
+    gradients) and the parameters' gradients as Adam receives them."""
+    import dataclasses
+
+    from gsjax_torch.ops import rasterize
+    from gsjax_torch.parallel import make_sharded_train_step, shard
+    from gsjax_torch.parallel.shard import shard_gaussian_state
+    from gsjax_torch.train.step import make_train_step
+
+    fields = ("means2d", "conics", "colors", "opacities")
+    cfg = dataclasses.replace(cfg, settings=dataclasses.replace(cfg.settings, backend="kernel"))
+
+    def run(module, step, state, cam_arg):
+        got, orig = {"d_in": {}}, module.composite
+
+        def wrapped(*args):
+            got["in"] = [t.detach().clone() for t in args[:4]]
+            for f, t in zip(fields, args[:4]):
+                t.register_hook(lambda g, f=f: got["d_in"].__setitem__(f, g.detach().clone()))
+            out = orig(*args)
+            got["out"] = out[0].detach().clone()
+            out[0].register_hook(lambda g: got.__setitem__("d_out", g.detach().clone()))
+            return out
+
+        opt = tx.init(state.params)
+        adam_step = opt.step
+
+        def step_keeping_grads(*a, **k):
+            got["grads"] = {n: v.grad.detach().clone() for n, v in state.params.items()}
+            return adam_step(*a, **k)
+
+        opt.step = step_keeping_grads
+        module.composite = wrapped
+        try:
+            step(state, opt, cam_arg)
+        finally:
+            module.composite = orig
+        return got
+
+    sharded = run(shard, make_sharded_train_step(tx, mesh, cams, images, cfg),
+                  shard_gaussian_state(state0, mesh), [cam])
+    single = run(rasterize, make_train_step(tx, cams, images, cfg), _clone_state(state0), cam)
+    report = {f"splat {f}": _bits(a, b) for f, a, b in zip(fields, sharded["in"], single["in"])}
+    report["tile colors"] = _bits(sharded["out"], single["out"])
+    report["d loss / d tile colors"] = _bits(sharded["d_out"], single["d_out"])
+    report.update({f"d {f}": _bits(sharded["d_in"][f], single["d_in"][f]) for f in fields})
+    report.update({f"grad {k}": _bits(sharded["grads"][k], single["grads"][k])
+                   for k in single["grads"]})
+    return report
+
+
+def sharded_rank(spec):
+    """One rank of phase 13a or 13b (``python chip_smoke.py --sharded-rank
+    SPEC``): the bench scene through the sharded render and train step at
+    ``spec["case"]``'s mesh, held by rank 0 against the single-device path
+    on the same inputs. Rank 0 writes the numbers to ``spec["out"]``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gsjax_torch.configs import OptimizationParams
+    from gsjax_torch.data.cameras import stack_render_cameras
+    from gsjax_torch.ops import cuda_composite as cc
+    from gsjax_torch.parallel import make_mesh, make_sharded_render, make_sharded_train_step
+    from gsjax_torch.parallel.multihost import global_to_host_local, maybe_initialize, rank_device
+    from gsjax_torch.parallel.shard import (
+        gather_gaussian_state,
+        gather_moments,
+        shard_gaussian_state,
+        strip_kernel_args,
+    )
+    from gsjax_torch.train.optim import adam_moments, make_optimizer
+    from gsjax_torch.train.step import TrainConfig, make_render_fn, make_train_step
+
+    device = spec["device"]
+    maybe_initialize(device=device)
+    dev = rank_device(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    state0, rcams = bench_scene(dev, spec["n"], spec["capacity"], spec["w"], spec["h"])
+    # phases 4-5's budgets with the grid expansion: its sort breaks equal
+    # depth keys by gaussian index in a strip as in the frame (the compact
+    # expansion's tie-break is a count partition, which a strip's clipped
+    # counts reorder; at 1M gaussians equal 19-bit depth keys are common)
+    settings = dataclasses.replace(bench_settings(state0, rcams, spec["max_pairs"]),
+                                   expansion="grid")
+    cfg = TrainConfig(settings=settings, extent=3.0)
+    images = shifted_targets(state0, rcams, cfg, dev)
+    tx = make_optimizer(OptimizationParams(), 3.0)
+    cams = stack_render_cameras(rcams)
+    bg = torch.zeros(3, device=dev)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend()}
+    main = rank == 0
+    mesh = make_mesh(data=1, gauss=world, device=device)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    if spec["case"] == "13b" and main:
+        out["grad_chain"] = grad_chain(tx, mesh, cams, images, cfg, state0, 0)
+        for k, v in out["grad_chain"].items():
+            log(f"  first step, sharded against single, {k}: {v}")
+        off = [k for k, v in out["grad_chain"].items() if v["differ"]]
+        if off:
+            raise AssertionError(f"one rank's first step differs from the single-device "
+                                 f"step at {off}")
+
+    if spec["case"] == "13a":  # the sharded render of the 4 poses
+        render = make_sharded_render(mesh, settings, spec["w"], spec["h"], with_stats=True)
+        local = shard_gaussian_state(state0, mesh)
+        if cuda:  # the kernels against their plain versions on this rank's strip
+            with torch.no_grad():
+                err_f, err_b, *_ = check_train_kernels(
+                    f"rank {rank} strip", strip_kernel_args(local, rcams[0], settings, mesh))
+            out["strip_kernel_err"] = global_to_host_local(
+                torch.tensor([err_f, err_b], dtype=torch.float64)).tolist()
+        render(local, rcams[0], bg)  # warm-up, outside the counted run
+        sync()
+        cc.composite_infer.launches = 0
+        frames = [timed(lambda rc=rc: render(local, rc, bg)) for rc in rcams]
+        out["render_launches"] = global_to_host_local(
+            torch.tensor(cc.composite_infer.launches)).tolist()
+        out["frame_ms"] = [ms for _, ms in frames]
+        out["render_dropped"] = [int(f[2]) for f, _ in frames]
+        del local
+        if main:
+            single = make_render_fn(cfg, with_stats=True)
+            errs = []
+            for (img, _, _), rc in zip((f for f, _ in frames), rcams):
+                ref, dropped = single(state0, rc, bg)
+                if int(dropped):
+                    raise AssertionError(f"single-device render dropped {int(dropped)} pairs")
+                errs.append(float((img - ref).abs().max()))
+            out["render_max_abs_diff"] = max(errs)
+            if max(errs) > SHARD_IMG_ATOL or any(out["render_dropped"]):
+                raise AssertionError(f"sharded render: max |diff| {errs} (atol "
+                                     f"{SHARD_IMG_ATOL}), dropped {out['render_dropped']}")
+        # the compact expansion (the default): ties in depth order may break
+        # otherwise in a strip than in the frame
+        compact = dataclasses.replace(settings, expansion="compact")
+        render = make_sharded_render(mesh, compact, spec["w"], spec["h"], with_stats=True)
+        local = shard_gaussian_state(state0, mesh)
+        frames = [render(local, rc, bg) for rc in rcams]
+        del local
+        if main:
+            single = make_render_fn(TrainConfig(settings=compact, extent=3.0), with_stats=True)
+            out["compact"] = [_tie_diff(img, single(state0, rc, bg)[0], int(dropped))
+                              for (img, _, dropped), rc in zip(frames, rcams)]
+            log(f"  compact expansion, sharded against single: {out['compact']}")
+
+    # SHARD_STEPS sharded steps against as many single-device steps
+    order = [i % len(rcams) for i in range(SHARD_STEPS)]
+    local = shard_gaussian_state(state0, mesh)
+    opt = tx.init(local.params)
+    step = make_sharded_train_step(tx, mesh, cams, images, cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    cc.composite_infer.launches = cc.composite_fwd.launches = cc.composite_bwd.launches = 0
+    ms, step_ms = [], []
+    for i, c in enumerate(order):
+        (local, opt, m), t = timed(lambda c=c: step(local, opt, [c]))
+        ms.append({k: float(v) for k, v in m.items()})
+        step_ms.append(t)
+        if i == 0:  # the first step's gradients, as 0.1 x in Adam's first moment
+            mu_first = gather_moments(opt, mesh)[0]
+    out["step_launches"] = global_to_host_local(torch.tensor(
+        [cc.composite_infer.launches, cc.composite_fwd.launches, cc.composite_bwd.launches]
+    )).tolist()
+    out["step_ms"] = step_ms
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+    out["losses"] = [m["loss"] for m in ms]
+    out["step_dropped"] = [int(m["num_dropped_pairs"]) for m in ms]
+    whole = gather_gaussian_state(local, mesh)
+    del local, opt
+    if main:
+        st = _clone_state(state0)
+        o1 = tx.init(st.params)
+        step1 = make_train_step(tx, cams, images, cfg)
+        for i, c in enumerate(order):
+            st, o1, m1 = step1(st, o1, c)
+            for k in ("loss", "l1"):
+                if _rel(ms[i][k], float(m1[k])) > SHARD_LOSS_RTOL:
+                    raise AssertionError(f"step {i} {k}: sharded {ms[i][k]!r}, single "
+                                         f"{float(m1[k])!r}")
+            if i == 0:
+                want = adam_moments(o1)[0]
+                out["first_moment_max_norm_err"] = max(
+                    compare_grads(f"{spec['case']} first moment {k}", mu_first[k], want[k])
+                    for k in want if float(want[k].abs().max()) > 0)
+        lrs = {g["name"]: g["lr"] for g in o1.param_groups}
+        if world == 1:
+            out["params"] = {k: _close(k, whole.params[k], v.detach(), *SHARD_PARAM_TOL)
+                             for k, v in st.params.items()}
+        else:
+            out["params"] = {k: _close_adam(k, whole.params[k], v.detach(), lrs[k])
+                             for k, v in st.params.items()}
+        out["accum_max_abs_diff"] = _close("xyz_grad_accum", whole.xyz_grad_accum,
+                                           st.xyz_grad_accum, *SHARD_ACCUM_TOL)
+        if not (torch.equal(whole.denom, st.denom)
+                and torch.equal(whole.max_radii2d, st.max_radii2d)):
+            raise AssertionError("denom or max_radii2d differ from the single-device steps")
+        del st, o1
+    del whole
+
+    if spec["case"] == "13a":
+        # one step through the a2a exchange: nothing dropped, the same loss
+        a2a = TrainConfig(settings=dataclasses.replace(settings, splat_exchange="a2a"),
+                          extent=3.0)
+        local = shard_gaussian_state(state0, mesh)
+        _, _, m = make_sharded_train_step(tx, mesh, cams, images, a2a)(
+            local, tx.init(local.params), [order[0]])
+        out["a2a_exchange_dropped"] = int(m["num_exchange_dropped"])
+        out["a2a_loss_rel"] = _rel(float(m["loss"]), ms[0]["loss"])
+        del local
+        if out["a2a_exchange_dropped"] or out["a2a_loss_rel"] > SHARD_LOSS_RTOL:
+            raise AssertionError(f"a2a step: {out['a2a_exchange_dropped']} splats dropped, "
+                                 f"loss {out['a2a_loss_rel']:.3e} relative off all_gather's")
+        # data parallel: one camera per rank, the loss the mean of theirs
+        dmesh = make_mesh(data=world, gauss=1, device=device)
+        pair = [0, len(rcams) - 1]
+        local = shard_gaussian_state(state0, dmesh)
+        _, _, m = make_sharded_train_step(tx, dmesh, cams, images, cfg)(
+            local, tx.init(local.params), pair)
+        del local
+        if main:
+            singles = []
+            for c in pair:
+                st = _clone_state(state0)
+                _, _, m1 = make_train_step(tx, cams, images, cfg)(st, tx.init(st.params), c)
+                singles.append(float(m1["loss"]))
+            want = sum(singles) / len(singles)
+            out["data_parallel_loss_rel"] = _rel(float(m["loss"]), want)
+            if out["data_parallel_loss_rel"] > SHARD_LOSS_RTOL:
+                raise AssertionError(f"data-parallel loss {float(m['loss'])!r} is not the "
+                                     f"mean {want!r} of the cameras' losses {singles}")
+    if main:
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    return 0
+
+
+def phase_sharded_steps(device, case, world, workdir, n=1_000_000, capacity=1 << 20,
+                        w=1920, h=1080, max_pairs=BENCH_MAX_PAIRS):
+    """Phase 13a (``world`` ranks over gloo on one card) or 13b (one rank
+    over NCCL): :func:`sharded_rank` in ``world`` processes through the
+    port's launcher. Returns rank 0's numbers."""
+    from gsjax_torch.parallel.multihost import spawn_ranks
+
+    out = os.path.join(workdir, f"{case}.json")
+    spec = json.dumps({"case": case, "device": device, "n": n, "capacity": capacity,
+                       "w": w, "h": h, "max_pairs": max_pairs, "out": out})
+    log(f"phase {case}: {world} rank(s), {n} gaussians at {w}x{h}")
+    t0 = time.perf_counter()
+    res = spawn_ranks([sys.executable, os.path.abspath(__file__), "--sharded-rank", spec],
+                      world, SHARD_TIMEOUT_S, cwd=HERE,
+                      threads=1 if device == "cpu" else None)
+    for rank, r in enumerate(res):
+        for line in r.stdout.splitlines():
+            log(f"  [{rank}] {line}")
+    with open(out) as f:
+        report = json.load(f)
+    want_backend = "gloo" if world > 1 or device == "cpu" else "nccl"
+    if report["backend"] != want_backend:
+        raise AssertionError(f"{case}: backend {report['backend']}, want {want_backend}")
+    launches_ok = report["step_launches"] == [[0, SHARD_STEPS, SHARD_STEPS]] * world
+    if case == "13a":
+        launches_ok &= report["render_launches"] == [len(POSES)] * world
+    if device == "cuda" and not launches_ok:
+        raise AssertionError(f"{case}: launches per rank {report}")
+    if device == "cuda" and case == "13a" and len(report.get("strip_kernel_err", [])) != world:
+        raise AssertionError(f"{case}: a rank did not check the kernels on its strip {report}")
+    if any(report["step_dropped"]):
+        raise AssertionError(f"{case}: pairs dropped in the sharded steps {report}")
+    log(f"  {case}: {json.dumps(report)}")
+    log(f"  {case}: {time.perf_counter() - t0:.1f} s")
+    return report
+
+
+def _rank_summaries(results):
+    """The JSON last line of each rank's output."""
+    return [json.loads(r.stdout.strip().splitlines()[-1]) for r in results]
+
+
+def phase_sharded_training(device, run, workdir, iterations=300, ranks=2):
+    """Phase 13c: ``python -m gsjax_torch.train --gauss_shards 2`` on phase
+    11's scene, two ranks sharing the card, stopped at ``iterations``:
+    test PSNR and the counts after each densification against phase 11's
+    single-rank run, and each rank's kernel launches."""
+    from gsjax_torch.parallel.multihost import spawn_ranks
+
+    model = os.path.join(workdir, "sharded")
+    log(f"phase 13c: python -m gsjax_torch.train --gauss_shards {ranks}, {iterations} "
+        f"iterations, {ranks} ranks")
+    t0 = time.perf_counter()
+    res = spawn_ranks([sys.executable, "-m", "gsjax_torch.train", "-s", run["scene"],
+                       "-m", model, "--eval", "--device", device, "--disable_viewer",
+                       "--iterations", str(iterations), *run["schedule"],
+                       "--test_iterations", str(iterations), "--capacity",
+                       str(run["capacity"]), "--gauss_shards", str(ranks)],
+                      ranks, SUBPROCESS_TIMEOUT_S, cwd=HERE)
+    for line in res[0].stdout.splitlines()[-25:]:
+        log(f"  [0] {line}")
+    done = _rank_summaries(res)
+    records = _train_log(model)
+    evals = {r["iter"]: r["eval"] for r in records if "eval" in r}
+    dens = {r["iter"]: r["num_active"] for r in records if r.get("event") == "densify"}
+    grows = [r for r in records if r.get("event") == "capacity_growth"]
+    psnr = evals[iterations]["test"]["psnr"]
+    gaps = {it: _rel(n, run["densify"][it]) for it, n in dens.items()}
+    n_eval = sum(evals[iterations][s]["n_views"] for s in ("test", "train"))
+    want = [{"composite_fwd": iterations, "composite_bwd": iterations,
+             "composite_infer": n_eval if r == 0 else 0} for r in range(ranks)]
+    launches = [d["launches"] for d in done]
+    log(f"  test PSNR at {iterations}: {psnr:.4f} (single rank {run['psnr'][iterations]:.4f}); "
+        f"after each densification {dens} (single rank "
+        f"{ {it: run['densify'][it] for it in dens} }, relative gaps {gaps}); growths "
+        f"{[(r['iter'], r['capacity']) for r in grows]}; launches per rank {launches}; wall "
+        f"{[d['wall_s'] for d in done]} s; peak memory {[d['peak_memory_gib'] for d in done]} "
+        f"GiB; {time.perf_counter() - t0:.1f} s")
+    checks = {
+        f"test PSNR within {SHARD_PSNR_DB} dB of the single-rank run":
+            abs(psnr - run["psnr"][iterations]) <= SHARD_PSNR_DB,
+        "the densifications of the single-rank run": set(dens) == {
+            it for it in run["densify"] if it <= iterations},
+        f"counts after densification within {SHARD_COUNT_REL:.0%}":
+            all(g <= SHARD_COUNT_REL for g in gaps.values()),
+        "a capacity growth": bool(grows),
+        "fwd and bwd once per rank per step, infer once per eval view on rank 0":
+            device != "cuda" or launches == want,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"sharded training run: {failed}")
+    return {"psnr": psnr, "densify": dens, "gaps": gaps, "launches": launches,
+            "wall_s": [d["wall_s"] for d in done]}
+
+
+def phase_multiscene(device, run, workdir, iterations=100):
+    """Phase 13d: ``python -m gsjax_torch.train_multiscene`` with phase
+    11's scene under two model paths on two ranks: every rank exits 0 with
+    finite losses, and the two scenes' snapshots agree bit for bit (else
+    within 1e-6 relative, reported)."""
+    from gsjax_torch.data.ply import read_ply
+    from gsjax_torch.parallel.multihost import spawn_ranks
+
+    models = [os.path.join(workdir, f"multiscene_{i}") for i in range(2)]
+    log(f"phase 13d: python -m gsjax_torch.train_multiscene, 2 scenes on 2 ranks, "
+        f"{iterations} iterations")
+    t0 = time.perf_counter()
+    res = spawn_ranks([sys.executable, "-m", "gsjax_torch.train_multiscene", "-s",
+                       run["scene"], run["scene"], "-m", *models, "--eval", "--device", device,
+                       "--iterations", str(iterations), "--capacity", str(run["capacity"])],
+                      2, SUBPROCESS_TIMEOUT_S, cwd=HERE)
+    done = _rank_summaries(res)
+    plys = [os.path.join(m, "point_cloud", f"iteration_{iterations}", "point_cloud.ply")
+            for m in models]
+    with open(plys[0], "rb") as a, open(plys[1], "rb") as b:
+        same = a.read() == b.read()
+    worst = 0.0
+    if not same:
+        pa, pb = read_ply(plys[0]), read_ply(plys[1])
+        worst = max(float(np.max(np.abs(pa[k] - pb[k]) / np.maximum(np.abs(pb[k]), 1e-30)))
+                    for k in pa)
+    log(f"  losses {[d['losses'] for d in done]}, launches {[d['launches'] for d in done]}, "
+        f"wall {[d['wall_s'] for d in done]} s; snapshots bit for bit equal: {same}"
+        + ("" if same else f" (max relative difference {worst:.3e})")
+        + f"; {time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite(d["losses"]).all() for d in done):
+        raise AssertionError(f"multi-scene: non-finite losses {done}")
+    if not same and worst > 1e-6:
+        raise AssertionError(f"multi-scene: the two scenes' snapshots differ by {worst:.3e}")
+    return {"bit_equal": same, "max_rel": worst}
+
+
+def phase_scaling_bench():
+    """Phase 13e: ``python -m gsjax_torch.scaling_bench`` at gauss 1 (NCCL)
+    and 2 (gloo, two ranks on the card): steps/s for each, no pair dropped,
+    and the shared-card note."""
+    report = json.loads(run_module("13e", ["gsjax_torch.scaling_bench", "--gauss", "1", "2",
+                                          "--steps", "5"])[-1])
+    checks = {
+        "steps/s for gauss 1 and 2": all(report["steps_per_s"].get(k, 0) > 0 for k in "12"),
+        "backends nccl, gloo": report["backend"] == {"1": "nccl", "2": "gloo"},
+        "no pair dropped": not any(report["num_dropped_pairs"].values()),
+        "the shared-card note": "share" in report.get("note", ""),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"scaling_bench: {failed} ({report})")
+    return report
+
+
+def phase_sharded(device, run, workdir):
+    """Phase 13, the sharded path (see the module docstring). Returns, per
+    compositing kernel, the launches of 13a's counted runs summed over the
+    ranks and its largest error against the plain version on a rank's
+    strip (the forward's max |diff|, the backward's normalised)."""
+    t0 = time.perf_counter()
+    a = phase_sharded_steps(device, "13a", 2, workdir)
+    phase_sharded_steps(device, "13b", 1, workdir)
+    phase_sharded_training(device, run, workdir)
+    phase_multiscene(device, run, workdir)
+    phase_scaling_bench()
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+    err_f, err_b = (max(e[i] for e in a["strip_kernel_err"]) for i in (0, 1))
+    return {"composite_infer": (sum(a["render_launches"]), err_f),
+            "composite_fwd": (sum(n[1] for n in a["step_launches"]), err_f),
+            "composite_bwd": (sum(n[2] for n in a["step_launches"]), err_b)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1304,6 +1866,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run = phase_training_run(device, workdir=tmp)
         entries[0]["launches_serving"] = phase_serving(device, run["model"], 600, settings)
+        sharded = phase_sharded(device, run, tmp)
+    for e in entries[:3]:  # the compositing kernels in 13a: launches, error on a strip
+        e["launches_sharded"], e["max_abs_err_sharded"] = sharded[e["name"]]
+        e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sharded"])
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
@@ -1315,4 +1881,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-rank":  # one rank of phase 13
+        sys.path.insert(0, HERE)
+        sys.exit(sharded_rank(json.loads(sys.argv[2])))
     sys.exit(main())

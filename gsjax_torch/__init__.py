@@ -18,9 +18,12 @@ Package layout (as in gsjax)
                         loading; the training CLI (``python -m gsjax_torch.train``)
 ``gsjax_torch.eval``    PSNR, LPIPS (VGG16, gated weights)
 ``gsjax_torch.viewer``  the SIBR remote-viewer bridge, the local web viewer
+``gsjax_torch.parallel`` ranks over torch.distributed: mesh, collectives,
+                        gaussian-sharded tile strips, scenes side by side
 ``gsjax_torch.render``  offline-render CLI (``python -m gsjax_torch.render``);
                         beside it ``metrics``, ``full_eval``, ``view``,
-                        ``render_bench``, ``viewer_bench``, ``bench``, ``probes``
+                        ``render_bench``, ``viewer_bench``, ``bench``, ``probes``,
+                        ``train_multiscene``, ``scaling_bench``
 
 Entry points that create tensors take ``device=`` and default to
 ``"cuda"``; they raise when CUDA is absent. Tests pass ``device="cpu"``.

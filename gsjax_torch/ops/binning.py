@@ -49,6 +49,12 @@ class TileBins(NamedTuple):
     mt: int  # max tiles per gaussian (slot stride in grid layout)
 
 
+def key_depth_bits(num_tiles: int) -> int:
+    """Depth bits of the packed sort key: the tile id (and its sentinel,
+    ``num_tiles``) takes the low bits' complement of a uint32."""
+    return 32 - max(int(num_tiles + 1).bit_length(), 1)
+
+
 def _quantized_depth(depths, depth_bits: int):
     """Positive-f32 bit pattern truncated to ``depth_bits`` (int64) —
     monotone in depth, so integer order == depth order."""
@@ -119,6 +125,7 @@ def build_tile_bins(
     max_tiles_per_gauss: int = 32,
     tier_frac: float = 0.0,
     expansion: str = "grid",
+    depth_bits: Optional[int] = None,
 ) -> TileBins:
     """Expand per-Gaussian tile rectangles into sorted (tile, depth) pairs.
 
@@ -129,7 +136,12 @@ def build_tile_bins(
     j-th tile form a suffix of that order); ``"grid"`` expands the dense
     (N, mt) grid, optionally *tiered* (``tier_frac`` of the rows at
     ``mt_small = max(2, mt/4)`` slots). Only the leading
-    ``min(max_pairs, slots)`` sorted pairs are returned."""
+    ``min(max_pairs, slots)`` sorted pairs are returned.
+
+    ``depth_bits`` is the width of the quantized depth in the sort key;
+    by default all that the tile id leaves of 32 bits
+    (:func:`key_depth_bits` of the tile count). A strip of a frame passes
+    the frame's, so that it sorts its pairs as the frame does."""
     n = splats.depths.shape[0]
     dev = splats.depths.device
     mt = max_tiles_per_gauss
@@ -140,9 +152,10 @@ def build_tile_bins(
     num_tiles = tiles_x * tiles_y
     total_desired = torch.sum(splats.tiles_touched.to(_I64))
 
-    # tile-id bits for the packed key; depth takes the rest of a uint32
-    tile_bits = max(int(num_tiles + 1).bit_length(), 1)
-    depth_bits = 32 - tile_bits
+    if depth_bits is None:
+        depth_bits = key_depth_bits(num_tiles)
+    elif depth_bits > key_depth_bits(num_tiles):
+        raise ValueError(f"{depth_bits} depth bits leave too few for {num_tiles} tiles")
 
     compact = expansion == "compact" and not exact_depth_sort
     mt_small = max(2, mt // 4)

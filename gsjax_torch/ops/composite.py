@@ -39,7 +39,8 @@ def _tile_pixel_coords(tiles_x: int, tiles_y: int, device):
 
 
 def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
-               tiles_x: int, tiles_y: int, n_rounds: int, chunk: int, boxes=None):
+               tiles_x: int, tiles_y: int, n_rounds: int, chunk: int, boxes=None,
+               pixel_origin=(0.0, 0.0)):
     """``n_rounds`` chunks of ``chunk`` pairs per tile, front to back.
 
     Returns ``(tile_colors (T, 256, 3), tile_T (T, 256), done (T, 256)
@@ -51,10 +52,14 @@ def scan_tiles(pair_gauss, tile_start, means2d, conics, colors, opacities,
     0 if none — the bound of the backward's replay. ``boxes`` (N, 4) (x lo,
     x hi, y lo, y hi), if given, culls as the CUDA kernels do: a pair is
     skipped at the pixels of each 16x2 strip (pixel rows 2w and 2w + 1)
-    that its gaussian's box misses."""
+    that its gaussian's box misses. ``pixel_origin`` (x, y) offsets the
+    pixel grid: a strip of tile rows whose ``means2d`` stay in the whole
+    image's pixel coordinates (``parallel.shard``)."""
     dev = means2d.device
     num_tiles = tiles_x * tiles_y
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)  # (T, 256, 2)
+    if tuple(pixel_origin) != (0.0, 0.0):
+        pix = pix + torch.tensor(pixel_origin, dtype=torch.float32, device=dev)
     px, py = pix[:, :, None, 0], pix[:, :, None, 1]
     if boxes is not None:  # each pixel's strip: first column x0, first row y0
         x0 = pix[:, :1, None, 0]
@@ -131,8 +136,10 @@ def composite_tiles(
     tiles_y: int,
     max_splats_per_tile: int,
     chunk: int = 32,
+    pixel_origin=(0.0, 0.0),
 ):
     """Blend sorted splats into per-tile pixel buffers (the scan backend).
+    ``pixel_origin`` (x, y) offsets the pixel grid (see :func:`scan_tiles`).
 
     Returns ``(tile_colors (T, 256, 3), tile_transmittance (T, 256),
     num_tile_capped ())``: the scan walks exactly
@@ -142,7 +149,7 @@ def composite_tiles(
     n_rounds = max(max_splats_per_tile // chunk, 1)
     tile_colors, tile_T, done, _, _ = scan_tiles(
         bins_pair_gauss, tile_start, means2d, conics, colors, opacities,
-        tiles_x, tiles_y, n_rounds, chunk,
+        tiles_x, tiles_y, n_rounds, chunk, pixel_origin=pixel_origin,
     )
     num_tiles = tiles_x * tiles_y
     count = tile_start[1:num_tiles + 1] - tile_start[:num_tiles]

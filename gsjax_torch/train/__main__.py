@@ -10,12 +10,20 @@ As gsjax's, the run serves the SIBR remote-viewer bridge on ``--ip`` /
 ``--port`` unless ``--disable_viewer`` is given (a port it cannot bind
 prints "viewer bridge disabled" and training goes on; the bridge runs one
 step per dispatch), and ``--web_viewer PORT`` serves the live state to a
-browser (``gsjax_torch.viewer.local_viewer``). Not ported, each refused
-when asked for: ``--multihost`` / ``--dist_*`` / ``--data_shards`` /
-``--gauss_shards`` > 1 (ROADMAP Queue 1 item 7, ``parallel/*``). On its
-last line the CLI prints one JSON object with the iterations run, the
-compositing kernels' launch counts over the run, its wall time and, on
-CUDA, the peak device memory.
+browser (``gsjax_torch.viewer.local_viewer``).
+
+``--data_shards`` x ``--gauss_shards`` ranks train one scene sharded
+(``gsjax_torch.parallel``), one process each, started with the root
+``train.py``'s bootstrap flags: ``--dist_coordinator HOST:PORT
+--dist_num_processes N --dist_process_id I`` (or the ``GSJAX_*``
+variables), or ``--multihost`` under ``torchrun``. Only rank 0 logs,
+evaluates and saves; the others run quiet. A sharded run serves no viewer
+(the bridge would step one rank alone): ``--web_viewer`` is refused and
+the bridge is off.
+
+On its last line the CLI prints one JSON object with the iterations run,
+the compositing kernels' launch counts over the run (this rank's), its wall
+time and, on CUDA, the peak device memory.
 """
 
 from __future__ import annotations
@@ -67,13 +75,15 @@ def build_parser():
                              "0 = no budget")
     parser.add_argument("--steps_per_dispatch", type=int, default=25)
     parser.add_argument("--data_shards", type=int, default=1,
-                        help="not ported beyond 1 (ROADMAP Queue 1 item 7)")
+                        help="mesh axis: cameras per step (data parallel)")
     parser.add_argument("--gauss_shards", type=int, default=1,
-                        help="not ported beyond 1 (ROADMAP Queue 1 item 7)")
+                        help="mesh axis: gaussian / tile-strip sharding")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported (ROADMAP Queue 1 item 7)")
+                        help="torch.distributed env:// rendezvous (torchrun), one "
+                             "process per rank")
     parser.add_argument("--dist_coordinator", type=str, default=None, metavar="HOST:PORT",
-                        help="not ported (ROADMAP Queue 1 item 7)")
+                        help="rank 0's address (with --dist_num_processes / "
+                             "--dist_process_id)")
     parser.add_argument("--dist_num_processes", type=int, default=None)
     parser.add_argument("--dist_process_id", type=int, default=None)
     parser.add_argument("--device", default="cuda",
@@ -85,19 +95,28 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
-    if args.multihost or any(getattr(args, f"dist_{k}") is not None
-                             for k in ("coordinator", "num_processes", "process_id")):
-        raise NotImplementedError("--multihost / --dist_* are not ported: ROADMAP Queue 1 "
-                                  "item 7 (parallel/*)")
 
     import torch
 
     from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams, extract
     from gsjax_torch.ops import cuda_composite as cc
+    from gsjax_torch.parallel.multihost import is_main_process, maybe_initialize, rank_device
     from gsjax_torch.train.loop import training
-    from gsjax_torch.utils.system import resolve_device, safe_state
+    from gsjax_torch.utils.system import safe_state
 
-    device = resolve_device(args.device)  # fail before loading anything
+    device = rank_device(args.device)  # fail before loading anything
+    distributed = maybe_initialize(args.dist_coordinator, args.dist_num_processes,
+                                   args.dist_process_id, args.multihost, device=args.device)
+    if distributed or args.data_shards * args.gauss_shards > 1:
+        device = rank_device(args.device)
+        if args.web_viewer is not None:
+            raise ValueError("--web_viewer serves one process's state: not with sharded "
+                             "training")
+        args.disable_viewer = True
+        if not is_main_process():
+            args.quiet = True
+    if device.type == "cuda":
+        torch.cuda.set_device(device)  # this rank's card, with CUDA initialized
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     safe_state(args.quiet, args.seed)  # reference train.py:214
@@ -191,7 +210,7 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     print("\nTraining complete.")
     summary = {
-        "stage": "done", "iterations": opt.iterations, "wall_s": wall,
+        "stage": "done", "rank": torch.distributed.get_rank() if distributed else 0, "iterations": opt.iterations, "wall_s": wall,
         "num_active": int(state.num_active), "capacity": state.capacity,
         "launches": {k.__name__: k.launches for k in kernels},
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30

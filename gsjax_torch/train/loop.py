@@ -17,8 +17,17 @@ nothing in its place: the background compile of the next capacity bucket
 (``CapacityWarmer``, ``_grown_abstract``, ``_with_fallback``,
 ``_warmed_densify``) and the AOT lowering of the step
 (``_attach_lower_images``). Growing capacity or a budget rebuilds the step
-closures, which costs no compile. Sharded training (``data_shards`` /
-``gauss_shards`` > 1) is not ported (ROADMAP Queue 1 item 7).
+closures, which costs no compile.
+
+Sharded training (``data_shards`` x ``gauss_shards`` ranks, one process
+each: ``parallel.multihost``) runs ``parallel.shard``'s steps on each rank's
+block of Gaussian rows, one camera per ``data`` row per step. Every rank
+takes the same decisions (camera draws, budget reactions, densification),
+so the collectives stay in step. Densification and capacity growth run on
+the whole state: each rank gathers the state and Adam's moments over
+``gauss``, runs :func:`make_densify_step` with the same generator, and keeps
+its own rows. Logging, evaluation and checkpoints come from the main rank,
+on the gathered state.
 
 Before a scene renders, :func:`default_rasterize_settings` and a
 preprocess probe on the model (:func:`probe_rasterize_settings` for
@@ -49,7 +58,12 @@ from gsjax_torch.train.checkpoint import (
     save_checkpoint,
 )
 from gsjax_torch.train.loss import l1_loss
-from gsjax_torch.train.optim import grow_optimizer, make_optimizer
+from gsjax_torch.train.optim import (
+    adam_count,
+    grow_optimizer,
+    make_optimizer,
+    with_adam_moments,
+)
 from gsjax_torch.train.scene import Scene
 from gsjax_torch.train.step import (
     TrainConfig,
@@ -59,6 +73,8 @@ from gsjax_torch.train.step import (
     make_train_step_chained,
     stack_images,
 )
+from gsjax_torch.parallel import comm
+from gsjax_torch.parallel.multihost import is_main_process, process_count
 from gsjax_torch.utils.system import resolve_device
 
 GROW_WATERMARK = 0.9  # grow capacity when the active fraction exceeds this
@@ -284,15 +300,29 @@ def training(
     update of densification iterations as the reference does (its tensor
     surgery leaves ``.grad=None``, reference train.py:118-128); "apply"
     (the default) applies every step. ``debug_from`` >= 0 turns on
-    ``torch.autograd.set_detect_anomaly`` from that iteration."""
+    ``torch.autograd.set_detect_anomaly`` from that iteration.
+
+    ``data_shards`` x ``gauss_shards`` > 1 (or an initialized world of more
+    than one rank) trains sharded: every rank calls ``training`` with the
+    same arguments, on the device ``parallel.multihost`` gives it; the
+    returned state is the whole one, on every rank."""
     dev = resolve_device(device)
     if densify_iter_grad not in ("apply", "discard"):
         raise ValueError(f"unknown densify_iter_grad {densify_iter_grad!r}")
-    if data_shards * gauss_shards > 1:
-        raise NotImplementedError(
-            "sharded training (data_shards / gauss_shards > 1) is not ported: "
-            "ROADMAP Queue 1 item 7 (parallel/*)")
     discard_densify_grad = densify_iter_grad == "discard"
+    mesh = None
+    if data_shards * gauss_shards > 1 or process_count() > 1:
+        if discard_densify_grad:
+            raise ValueError("densify_iter_grad='discard' is single-device only (the "
+                             "sharded step does not thread the apply_update flag)")
+        if gui_callback is not None:
+            raise ValueError("the viewer bridge steps one rank alone: sharded runs take "
+                             "no gui_callback")
+        from gsjax_torch.parallel import make_mesh
+
+        mesh = make_mesh(data=data_shards, gauss=gauss_shards, device=dev.type)
+        dev = mesh.device
+    main = is_main_process()
     random.seed(seed)
     np.random.seed(seed)
 
@@ -300,11 +330,12 @@ def training(
         unique = os.getenv("OAR_JOB_ID", str(int(time.time())))[-10:]
         model.model_path = os.path.join("./output", unique)
     os.makedirs(model.model_path, exist_ok=True)
-    save_cfg_args(model.model_path, model)
-    logs = TrainerLogs(os.path.join(model.model_path, "train_log.jsonl"),
-                       tb_dir=model.model_path)
+    if main:
+        save_cfg_args(model.model_path, model)
+    logs = TrainerLogs(os.path.join(model.model_path, "train_log.jsonl") if main else None,
+                       tb_dir=model.model_path if main else None)
 
-    scene = Scene(model, capacity=capacity, device=dev)
+    scene = Scene(model, capacity=capacity, device=dev, write_model_dir=main)
     state = scene.gaussians
     extent = float(scene.cameras_extent)
 
@@ -324,6 +355,9 @@ def training(
             bucket_of[i] = (b, j)
     multi_res = len(bucket_sizes) > 1
     width, height = bucket_sizes[0]
+    if mesh is not None and multi_res:
+        raise ValueError("sharded training requires a single training resolution; "
+                         "pass --resolution to resize")
 
     if settings is None:
         settings = default_rasterize_settings(width, height, state.capacity)
@@ -361,11 +395,45 @@ def training(
             state, opt_state, first_iter = load_checkpoint(start_checkpoint, make_template)
         print(f"Restored checkpoint at iteration {first_iter}")
 
+    def to_ranks(whole, whole_opt):
+        """This rank's rows of a whole state and of its optimizer."""
+        local = shard_gaussian_state(whole, mesh)
+        return local, shard_opt_state(tx, local, whole_opt, mesh)
+
+    def to_whole(local, local_opt):
+        """The whole state (every rank) and an optimizer bound to it."""
+        whole = gather_gaussian_state(local, mesh)
+        mu, nu = gather_moments(local_opt, mesh)
+        whole_opt = tx.init(whole.params)
+        whole_opt.count = local_opt.count
+        if local_opt.state:
+            with_adam_moments(whole_opt, mu, nu, count=adam_count(local_opt))
+        return whole, whole_opt
+
+    if mesh is not None:
+        from gsjax_torch.parallel.shard import (
+            gather_gaussian_state,
+            gather_moments,
+            make_sharded_train_step,
+            make_sharded_train_step_chained,
+            shard_gaussian_state,
+            shard_opt_state,
+        )
+
+        state, opt_state = to_ranks(state, opt_state)
+        scene.gaussians = None  # the whole state lives on as the ranks' blocks
+        print(f"Sharded training on mesh {mesh.shape} (rank {mesh.rank}: data row {mesh.d}, "
+              f"gauss block {mesh.g}, {state.capacity} rows)", flush=True)
+
     n_chain = max(1, int(steps_per_dispatch))
     if multi_res:
         n_chain = 1  # chaining assumes one camera-batch shape
 
     def build_steps(cfg_now):
+        if mesh is not None:
+            return (make_sharded_train_step(tx, mesh, cam_batch, images, cfg_now),
+                    make_sharded_train_step_chained(tx, mesh, cam_batch, images, cfg_now,
+                                                    n_chain) if n_chain > 1 else None)
         return (make_train_step(tx, cam_batch, images, cfg_now),
                 make_train_step_chained(tx, cam_batch, images, cfg_now, n_chain)
                 if n_chain > 1 else None)
@@ -461,11 +529,21 @@ def training(
         k_len = chain_len(iteration) if gui_callback is None else 1
         t0 = time.time()
         if chained is not None and k_len == n_chain:
-            cam_idxs = [bucket_of[pop_camera()][1] for _ in range(n_chain)]
+            if mesh is not None:  # one camera per data row
+                cam_idxs = [[bucket_of[pop_camera()][1] for _ in range(data_shards)]
+                            for _ in range(n_chain)]
+            else:
+                cam_idxs = [bucket_of[pop_camera()][1] for _ in range(n_chain)]
             state, opt_state, metrics = chained(state, opt_state, cam_idxs, key)
             metrics = _read_metrics(metrics)
             loss = metrics["loss_mean"]
             n_stepped = n_chain
+        elif mesh is not None:
+            cam_idx = [bucket_of[pop_camera()][1] for _ in range(data_shards)]
+            state, opt_state, metrics = step(state, opt_state, cam_idx, key)
+            metrics = _read_metrics(metrics)
+            loss = metrics["loss"]
+            n_stepped = 1
         else:
             b, cam_idx = bucket_of[pop_camera()]
             fn = step if b == 0 else bucket_step(b)
@@ -541,12 +619,15 @@ def training(
                 new_expansion = "compact"
                 mt_cap = mt_frame_cap
         grow_mt = mt_only > 0 and settings.max_tiles_per_gauss < mt_cap
-        exch_dropped = 0  # splat-exchange overflow exists only in gsjax's sharded step
+        # the a2a splat exchange's send budget overflowed: splats vanish
+        # from strips they overlap (sharded runs only)
+        exch_dropped = metrics.get("num_exchange_dropped", 0)
+        grow_a2a = exch_dropped > 0 and settings.splat_exchange == "a2a"
         back_off_tier = tier_capped > 0 and settings.tier_frac > 0
         # the scan's fixed depth truncated a live tile (the kernel never
         # caps; this fires on scan-backend runs only)
         grow_mspt = tile_capped > 0 and settings.max_splats_per_tile < (1 << 16)
-        if (grow_budget or grow_mt or grow_mspt or back_off_tier
+        if (grow_budget or grow_mt or grow_mspt or back_off_tier or grow_a2a
                 or new_expansion != settings.expansion):
             new_budget = settings.max_pairs * (2 if grow_budget else 1)
             new_mt = settings.max_tiles_per_gauss * (2 if grow_mt else 1)
@@ -557,6 +638,10 @@ def training(
                 if new_tier < 0.25:  # too small a tier saves no sort time
                     new_tier = 0.0
             new_a2a = settings.a2a_rows
+            if grow_a2a:  # state.capacity: this rank's rows
+                from gsjax_torch.parallel.shard import _a2a_rows_auto
+
+                new_a2a = 2 * _a2a_rows_auto(state.capacity, gauss_shards, settings.a2a_rows)
             print(
                 f"[ITER {iteration}] pair overflow "
                 f"(budget dropped {budget_dropped}, tile-capped {mt_capped}, "
@@ -630,23 +715,34 @@ def training(
                 "it_per_s": rate,
             })
 
-        if iteration in testing_iterations:
+        # the whole state, on every rank of a sharded run (a collective)
+        whole = state
+        if mesh is not None and (iteration in testing_iterations
+                                 or iteration in saving_iterations):
+            whole = gather_gaussian_state(state, mesh)
+
+        if iteration in testing_iterations and main:
             media = []
-            report = evaluate_state(state, scene, render_fn, bg, num_train_views=5,
+            report = evaluate_state(whole, scene, render_fn, bg, num_train_views=5,
                                     media=media)
             print(f"[ITER {iteration}] eval: {report}", flush=True)
             logs.write({"iter": iteration, "eval": report})
-            opacities = torch.sigmoid(state.params["opacity"].detach()[state.active, 0])
+            opacities = torch.sigmoid(whole.params["opacity"].detach()[whole.active, 0])
             logs.write_eval_media(iteration, media, opacities.cpu().numpy())
 
-        if iteration in saving_iterations:
+        if iteration in saving_iterations and main:
             print(f"[ITER {iteration}] Saving Gaussians", flush=True)
-            scene.save(iteration, state)
+            scene.save(iteration, whole)
+        del whole
 
         # densification (reference train.py:112-123)
         if iteration < opt.densify_until_iter:
             if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
                 use_screen = iteration > opt.opacity_reset_interval
+                if mesh is not None:
+                    # every rank densifies the gathered state alike (the
+                    # same generator draws the same split noise)
+                    state, opt_state = to_whole(state, opt_state)
                 state, opt_state, dstats = densify_step(state, opt_state, key,
                                                         use_screen_size=use_screen)
                 d = _read_metrics({**dstats._asdict(), "num_active": state.num_active})
@@ -676,6 +772,8 @@ def training(
                     logs.write({"iter": iteration, "event": "capacity_growth",
                                 "capacity": new_c, "precompiled": [],
                                 "pause_s": round(pause, 2)})
+                if mesh is not None:  # back to this rank's rows
+                    state, opt_state = to_ranks(state, opt_state)
 
             if iteration % opt.opacity_reset_interval == 0 or (
                 model.white_background and iteration == opt.densify_from_iter
@@ -684,21 +782,32 @@ def training(
 
         if iteration in checkpoint_iterations:
             print(f"[ITER {iteration}] Saving Checkpoint", flush=True)
-            save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
-                            state, opt_state, iteration)
+            whole, whole_opt = (state, opt_state) if mesh is None else to_whole(state, opt_state)
+            if main:
+                save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
+                                whole, whole_opt, iteration)
+            del whole, whole_opt
 
-        stop_file = os.path.join(model.model_path, "STOP")
-        stop_req = os.path.exists(stop_file)
-        if stop_req:
-            os.remove(stop_file)
-        if (wall_budget > 0 and time.time() - t_start > wall_budget) or stop_req:
+        stop_req = False
+        if main:  # the main rank reads the STOP file; the others follow it
+            stop_file = os.path.join(model.model_path, "STOP")
+            stop_req = os.path.exists(stop_file)
+            if stop_req:
+                os.remove(stop_file)
+        stop = (wall_budget > 0 and time.time() - t_start > wall_budget) or stop_req
+        if mesh is not None:  # every rank stops at the same iteration
+            flags = comm.pmax(torch.tensor([int(stop), int(stop_req)], device=dev),
+                              None).tolist()
+            stop, stop_req = bool(flags[0]), bool(flags[1])
+        if stop:
             print(f"[ITER {iteration}] "
                   + ("STOP file" if stop_req else f"wall budget ({wall_budget:.0f}s)")
                   + " — saving checkpoint + snapshot and stopping", flush=True)
-            save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
-                            state, opt_state, iteration)
-            scene.gaussians = state
-            scene.save(iteration)
+            whole, whole_opt = (state, opt_state) if mesh is None else to_whole(state, opt_state)
+            if main:
+                save_checkpoint(os.path.join(model.model_path, f"chkpnt{iteration}.npz"),
+                                whole, whole_opt, iteration)
+                scene.save(iteration, whole)
             logs.write({"iter": iteration, "event": "wall_budget_stop",
                         "budget_s": wall_budget})
             break
@@ -707,6 +816,8 @@ def training(
     logs.close()
     if not quiet:
         print(f"Training complete in {wall:.1f}s", flush=True)
+    if mesh is not None:
+        state = gather_gaussian_state(state, mesh)
     scene.gaussians = state
     return scene, state
 

@@ -62,17 +62,23 @@ def ssim(img1, img2, window_size: int = 11, sigma: float = 1.5):
     x = img1.permute(2, 0, 1)  # (3, H, W)
     y = img2.permute(2, 0, 1)
     stacked = torch.cat([x, y, x * x, y * y, x * y], dim=0)  # (15, H, W)
-    f = _depthwise_filter(stacked, window_size, sigma)
+    return ssim_map(_depthwise_filter(stacked, window_size, sigma)).mean()
+
+
+def ssim_map(f):
+    """The SSIM map (3, H, W) from the filtered stack ``f`` (15, H, W) of
+    x, y, x*x, y*y and x*y. The sharded path's strip SSIM shares it, so
+    both differentiate the same graph: each term reused as here, the
+    gradients summed in the same order."""
     mu1, mu2, exx, eyy, exy = (f[i * 3:(i + 1) * 3] for i in range(5))
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     sigma1_sq = exx - mu1_sq
     sigma2_sq = eyy - mu2_sq
     sigma12 = exy - mu12
     c1, c2 = 0.01**2, 0.03**2
-    ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
+    return ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
     )
-    return ssim_map.mean()
 
 
 def photometric_loss(pred, gt, lambda_dssim: float = 0.2):

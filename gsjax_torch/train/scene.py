@@ -39,6 +39,7 @@ class Scene:
         load_images: bool = True,
         capacity: Optional[int] = None,
         device="cuda",
+        write_model_dir: bool = True,
     ):
         device = resolve_device(device)  # fail before reading or writing anything
         self.model_path = model.model_path
@@ -60,7 +61,7 @@ class Scene:
             load_images=load_images,
         )
 
-        if not self.loaded_iter:
+        if not self.loaded_iter and write_model_dir:  # one rank of a sharded run writes
             os.makedirs(self.model_path, exist_ok=True)
             shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
             cam_json = [camera_to_json(i, c)

@@ -577,3 +577,61 @@ def test_densify_on_the_card_matches_the_plain_cpu_result():
     opt.step()
     assert bool(torch.isfinite(s.params["xyz"]).all()) and opt.count == 1
     assert all(m.device == s.params["xyz"].device for m in adam_moments(opt)[0].values())
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+@pytest.mark.parametrize("on", [pytest.param("cuda", marks=pytest.mark.cuda), "cpu"])
+def test_kernels_on_a_strip_match_the_frame(on, dense):
+    """The sharded path's strip (``parallel.shard``): tile rows [2, 5) of a
+    6-row frame, the rects clipped to the strip and ``means2d`` moved up by
+    its origin, through composite_infer, composite_fwd and the backward, equal
+    the same tiles of the whole frame (the backward: with the frame's
+    cotangents zero outside the strip). On CPU tensors the plain versions."""
+    dev = _cuda() if on == "cuda" else torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the plain versions beside other test workers
+    try:
+        _strip_against_frame(dev, dense)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _strip_against_frame(dev, dense):
+    from gsjax_torch.ops.binning import key_depth_bits
+    from gsjax_torch.parallel.shard import strip_splats
+
+    w, h = 70, 90
+    tx, ty = num_tiles(w, h)
+    sp = preprocess(*(torch.from_numpy(g).to(dev) for g in _scene(300, 5, dense)),
+                    _camera(w, h, dev), 3)
+
+    def kernel_args(splats, rows, y_origin):
+        b = build_tile_bins(splats, tx, rows, 1 << 15, max_tiles_per_gauss=16,
+                            expansion="compact", depth_bits=key_depth_bits(tx * ty))
+        means = splats.means2d - torch.tensor([0.0, y_origin], device=dev)
+        return (b.tile_start, b.pair_gauss,
+                cc.pack_gauss_attrs(means, splats.conics, splats.colors, splats.opacities),
+                tx, rows)
+
+    y0, sy = 2, 3
+    frame = kernel_args(sp, ty, 0.0)
+    strip = kernel_args(strip_splats(sp, y0, sy), sy, 16.0 * y0)
+    rows = slice(y0 * tx, (y0 + sy) * tx)
+    for name, fn in (("infer", cc.composite_infer), ("fwd", cc.composite_fwd)):
+        whole, part = fn(*frame), fn(*strip)
+        assert_two_tier(part[0], whole[0][rows], f"{name} colors")
+        assert_two_tier(part[1], whole[1][rows], f"{name} T")
+    _, f_T, f_n = cc.composite_fwd(*frame)
+    _, s_T, s_n = cc.composite_fwd(*strip)
+    assert float((s_n == f_n[rows]).float().mean()) >= 0.999
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    d_c = torch.zeros(f_T.shape + (3,), device=dev)
+    d_T = torch.zeros_like(f_T)
+    d_c[rows] = torch.randn(d_c[rows].shape, generator=g, device=dev)
+    d_T[rows] = torch.randn(d_T[rows].shape, generator=g, device=dev)
+    whole = cc.composite_grads(*frame[:3], d_c, d_T, f_T, f_n, tx, ty)
+    part = cc.composite_grads(*strip[:3], d_c[rows], d_T[rows], s_T, s_n, tx, sy)
+    assert float(whole[2].abs().max()) > 0
+    for name, got, want in zip(("means2d", "conics", "colors", "opacities"), part, whole):
+        assert_norm_tiers(got, want, name)

@@ -30,7 +30,11 @@ def test_port_imports_without_jax_or_gsjax():
             "gsjax_torch.synthetic_scene", "gsjax_torch.eval.lpips",
             "gsjax_torch.viewer", "gsjax_torch.viewer.network_gui",
             "gsjax_torch.viewer.local_viewer", "gsjax_torch.view",
-            "gsjax_torch.render_bench", "gsjax_torch.viewer_bench"} <= set(mods)
+            "gsjax_torch.render_bench", "gsjax_torch.viewer_bench",
+            "gsjax_torch.parallel", "gsjax_torch.parallel.multihost",
+            "gsjax_torch.parallel.mesh", "gsjax_torch.parallel.comm",
+            "gsjax_torch.parallel.shard", "gsjax_torch.parallel.multi_scene",
+            "gsjax_torch.train_multiscene", "gsjax_torch.scaling_bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -88,13 +92,23 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize("entry", ["train", "metrics", "full_eval", "synthetic_scene",
                                    "training", "scene", "view", "render_bench",
                                    "viewer_bench", "LocalViewer", "viewer_from_model",
-                                   "lpips_weights"])
+                                   "lpips_weights", "train_multiscene", "scaling_bench",
+                                   "sharded_training", "sharded_train"])
 def test_training_entry_points_refuse_without_cuda(entry, tmp_path):
-    """The training and serving slices' entry points default to CUDA and
+    """The training, serving and sharded slices' entry points default to CUDA and
     raise without it, before they read or write anything."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults would run")
-    from gsjax_torch import full_eval, metrics, render_bench, synthetic_scene, view, viewer_bench
+    from gsjax_torch import (
+        full_eval,
+        metrics,
+        render_bench,
+        scaling_bench,
+        synthetic_scene,
+        train_multiscene,
+        view,
+        viewer_bench,
+    )
     from gsjax_torch.eval.lpips import load_weights
     from gsjax_torch.models.gaussians import create_empty
     from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams
@@ -120,6 +134,16 @@ def test_training_entry_points_refuse_without_cuda(entry, tmp_path):
         "viewer_from_model": lambda: viewer_from_model(missing),
         "lpips_weights": lambda: load_weights(os.path.join(ROOT, "evidence",
                                                            "lpips_vgg_structure_test.npz")),
+        "train_multiscene": lambda: train_multiscene.main(
+            ["-s", missing, missing, "-m", str(tmp_path / "a"), str(tmp_path / "b")]),
+        "scaling_bench": lambda: scaling_bench.main(["--gauss", "1", "2"]),
+        "sharded_training": lambda: training(ModelParams(source_path=missing),
+                                             OptimizationParams(), PipelineParams(),
+                                             gauss_shards=2),
+        "sharded_train": lambda: train_main(["-s", missing, "-m", str(tmp_path / "m"),
+                                             "--gauss_shards", "2", "--dist_coordinator",
+                                             "127.0.0.1:1", "--dist_num_processes", "2",
+                                             "--dist_process_id", "0"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -267,13 +267,17 @@ def test_train_cli_runs_and_refuses_what_is_not_ported(scene_dir, tmp_path, capf
     for name in ("chkpnt10.npz", os.path.join("point_cloud", "iteration_20", "point_cloud.ply")):
         assert os.path.exists(os.path.join(out, name))
     assert any(r.get("event") == "densify" for r in _log(out))
-    # --web_viewer is ported (tests/test_torch_viewer.py); parallel/* is not
-    for flags in (["--multihost"], ["--dist_coordinator", "localhost:1"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            main(["-s", scene_dir, "-m", out, "--device", "cpu", "--disable_viewer"] + flags)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["-s", scene_dir, "-m", str(tmp_path / "s"), "--device", "cpu",
-              "--disable_viewer", "--data_shards", "2"])
+    # --web_viewer and the sharded flags are ported (tests/test_torch_viewer.py,
+    # tests/test_torch_parallel_cli.py); an incomplete bootstrap is refused
+    # before anything is read or written
+    for flags, err, match in ((["--multihost"], ValueError, "WORLD_SIZE"),
+                              (["--dist_coordinator", "localhost:1"], ValueError,
+                               "num_processes"),
+                              (["--data_shards", "2"], RuntimeError, "not initialized")):
+        with pytest.raises(err, match=match):
+            main(["-s", scene_dir, "-m", str(tmp_path / "s"), "--device", "cpu",
+                  "--disable_viewer"] + flags)
+        assert not os.path.exists(tmp_path / "s")
     sys.stdout = stdout
 
 
