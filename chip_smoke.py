@@ -34,12 +34,15 @@ Phases, in order; any failure exits nonzero:
    differentiable scan backend on a 20,000-gaussian 256x256 scene;
 7. the offline-render CLI (``gsjax_torch.render``) on a small synthetic
    scene written to a temporary directory;
-8. the speed-of-light probe (``sol_probe``) against its plain version at
-   the 512x512 and the 1080p frame's ``tile_start``, for every swept
-   (k_ops, k_exp), the exp instances also under the check coefficients
-   (``cuda_probe.check_exp_coefs``: under the probes' own an exp pass
-   forgets its input); its times, and the exp passes' times linear in
-   their count; then the measurement path as a user
+8. the speed-of-light probe (``sol_probe``): each instance's registers,
+   spills and resident warps (``cuda_probe.sol_probe_info``: its
+   occupancy, nothing spilled); against its plain version at the 512x512
+   and the 1080p frame's ``tile_start``, for every swept (k_ops, k_exp)
+   at 8, 24 and 48 warps per SM, the exp instances also under the check
+   coefficients (``cuda_probe.check_exp_coefs``: under the probes' own an
+   exp pass forgets its input); its times and bounds (the exps' MUFU term
+   included), and at each occupancy the floor, the slopes and the exp
+   passes' times linear in their count; then the measurement path as a user
    runs it: ``python -m gsjax_torch.probes --stages
    gather,sort,phases,bwdsplit,bwdcull,fwdcull,vpu,vpux --out`` (the probe path: its
    launch counts come from its last line);
@@ -560,25 +563,29 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     log(f"  backward warp-level work: {json.dumps(bwd_work(bwd_stats))}")
     work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, fwd_walk, fw["blends"],
                           walk, n_live)
+    # exps: the forward's per tested pixel, the backward's per contribution
     entries = [
         entry(name, f"gsjax/ops/pallas_composite.py:{line}", launches_, err_, ms, plain,
-              *work[name])
-        for name, line, launches_, err_, ms, plain in (
-            ("composite_infer", 561, launches, err, phases["kernel"], plain_ms),
-            ("composite_fwd", 396, 0, err_f, fwd_ms, fwd_plain_ms),
-            ("composite_bwd", 754, 0, err_b, bwd_ms, bwd_plain_ms),
+              *work[name], exps=exps)
+        for name, line, launches_, err_, ms, plain, exps in (
+            ("composite_infer", 561, launches, err, phases["kernel"], plain_ms, fw["exps"]),
+            ("composite_fwd", 396, 0, err_f, fwd_ms, fwd_plain_ms, fw["exps"]),
+            ("composite_bwd", 754, 0, err_b, bwd_ms, bwd_plain_ms, n_live),
         )
     ]
     return entries, state, rcams, settings, b.tile_start
 
 
-def entry(name, replaces, launches, err, ms, plain_ms, bytes_moved, ops, library_ms=None):
-    """One kernel's entry of the ``kernels`` line; its bound from the bytes
-    and operations of this run's inputs (``profiling.bound_ms``)."""
+def entry(name, replaces, launches, err, ms, plain_ms, bytes_moved, ops, library_ms=None,
+          exps=0):
+    """One kernel's entry of the ``kernels`` line; its bound from the bytes,
+    operations and exps of this run's inputs (``profiling.bound_ms``)."""
     from gsjax_torch.utils.profiling import bound_ms
 
-    bound, by = bound_ms(bytes_moved, ops)
-    log(f"  {name} bound: {bytes_moved} bytes, {ops} float32 ops -> {bound:.4f} ms ({by})")
+    bound, by = bound_ms(bytes_moved, ops, exps)
+    log(f"  {name} bound: {bytes_moved} bytes, {ops} float32 ops, {exps} exps -> "
+        f"{bound:.4f} ms ({by}; without the exps' term "
+        f"{bound_ms(bytes_moved, ops)[0]:.4f} ms)")
     return {
         "name": name,
         "route": "cuda",
@@ -861,18 +868,33 @@ def phase_cli(device):
 
 def phase_probe(tile_starts):
     """``sol_probe`` against its plain version at each frame's
-    ``tile_start`` for every swept (k_ops, k_exp), the exp instances under
-    both coefficient sets, then its times at the last frame's (the 1080p
-    one), whose exp passes must cost alike. Returns ``(max |kernel -
-    plain|, {config: (ms, plain ms, bound ms, bound by)})``."""
+    ``tile_start`` for every swept (k_ops, k_exp) at every occupancy, the
+    exp instances under both coefficient sets; each instance's registers,
+    spills and resident warps, which must be its occupancy with nothing
+    spilled; then the times at the last frame's (the 1080p one), whose exp
+    passes must cost alike at each occupancy. Returns ``(max |kernel -
+    plain|, {((k_ops, k_exp), warps per SM): (ms, plain ms, bound ms,
+    bound by)})``."""
     import torch
 
     from gsjax_torch.ops.cuda_probe import (
-        PROBE_EXP, SWEPT, check_exp_coefs, sol_probe, sol_probe_inputs, sol_probe_plain,
+        OCCUPANCIES, PROBE_EXP, SWEPT, check_exp_coefs, sol_probe, sol_probe_info,
+        sol_probe_inputs, sol_probe_plain,
     )
     from gsjax_torch.utils.profiling import bound_ms, sol_probe_work
 
     log("phase 8: sol_probe against its plain version")
+    for k in SWEPT:
+        for w in OCCUPANCIES:
+            for check in (False, True) if k[1] else (False,):
+                info = sol_probe_info(*k, w, check)
+                log(f"  instance {k} at {w} warps per SM{' (check)' if check else ''}: "
+                    f"{info['registers']} registers, {info['local_bytes']} local bytes a "
+                    f"thread, {info['blocks_per_sm']} blocks of {info['threads']} threads per "
+                    f"SM = {info['resident_warps']} warps, {info['smem_bytes']} B shared a "
+                    f"block")
+                if info["resident_warps"] != w or info["local_bytes"] != 0:
+                    raise AssertionError(f"sol_probe {k} at {w} warps per SM: {info}")
     worst = 0.0
     for tag, ts in tile_starts.items():
         ts = ts.contiguous()
@@ -882,34 +904,44 @@ def phase_probe(tile_starts):
             if k[1]:
                 coef_sets.append(("check", check_exp_coefs(k[0])))
             for cname, coefs in coef_sets:
-                got = sol_probe(ts, table, *k, coefs)
                 want = sol_probe_plain(ts, table, *k, coefs)
-                torch.cuda.synchronize()
-                if not bool(torch.isfinite(got).all()):
-                    raise AssertionError(f"sol_probe {tag} {k} {cname}: non-finite output")
-                diff = (got - want).abs()
-                rel = float((diff / want.abs().clamp_min(1e-30)).max())
-                worst = max(worst, float(diff.max()))
-                log(f"  {tag} (k_ops, k_exp) {k}, {cname} coefficients: max |diff| "
-                    f"{float(diff.max()):.3e}, max relative {rel:.3e} (out max "
-                    f"{float(want.abs().max()):.1f})")
-                if rel > PROBE_RTOL:
-                    raise AssertionError(f"sol_probe {tag} {k} {cname}: relative error "
-                                         f"{rel:.3e} > {PROBE_RTOL}")
+                for w in OCCUPANCIES:
+                    got = sol_probe(ts, table, *k, coefs, warps_per_sm=w)
+                    torch.cuda.synchronize()
+                    name = f"sol_probe {tag} {k} at {w} warps, {cname} coefficients"
+                    if not bool(torch.isfinite(got).all()):
+                        raise AssertionError(f"{name}: non-finite output")
+                    diff = (got - want).abs()
+                    rel = float((diff / want.abs().clamp_min(1e-30)).max())
+                    worst = max(worst, float(diff.max()))
+                    log(f"  {name}: max |diff| {float(diff.max()):.3e}, max relative "
+                        f"{rel:.3e} (out max {float(want.abs().max()):.1f})")
+                    if rel > PROBE_RTOL:
+                        raise AssertionError(f"{name}: relative error {rel:.3e} > {PROBE_RTOL}")
     times = {}
     for k in SWEPT:
-        ms = time_cuda(lambda: sol_probe(ts, table, *k), 10)
         plain = time_cuda(lambda: sol_probe_plain(ts, table, *k), 2)
-        bytes_, ops, elements = sol_probe_work(ts, *k)
-        bound, by = bound_ms(bytes_, ops)
-        times[k] = (ms, plain, bound, by)
-        log(f"  {tag} {k}: kernel {ms:.4f} ms, plain {plain:.3f} ms; {elements} elements, "
-            f"{ops} float32 ops, {bytes_} bytes -> bound {bound:.4f} ms ({by})")
-    e5, e10 = (times[(20, e)][0] - times[(20, 0)][0] for e in (5, 10))
-    ratio = e10 / (2 * e5)
-    log(f"  exp passes: 5 take {e5:.4f} ms, 10 take {e10:.4f} ms; linearity {ratio:.4f}")
-    if abs(ratio - 1) > EXP_LINEAR_TOL:
-        raise AssertionError(f"sol_probe: 10 exp passes take {ratio:.4f} x twice 5's")
+        bytes_, ops, elements, exps = sol_probe_work(ts, *k)
+        bound, by = bound_ms(bytes_, ops, exps)
+        log(f"  {tag} {k}: plain {plain:.3f} ms; {elements} elements, {ops} float32 ops, "
+            f"{exps} exps, {bytes_} bytes -> bound {bound:.4f} ms ({by}; without the exps' "
+            f"term {bound_ms(bytes_, ops)[0]:.4f} ms)")
+        for w in OCCUPANCIES:
+            ms = time_cuda(lambda: sol_probe(ts, table, *k, warps_per_sm=w), 10)
+            times[(k, w)] = (ms, plain, bound, by)
+            log(f"  {tag} {k} at {w} warps per SM: kernel {ms:.4f} ms, {bound / ms:.3f} of "
+                f"the bound")
+    for w in OCCUPANCIES:
+        t = {k: times[(k, w)][0] for k in SWEPT}
+        slope = (t[(40, 0)] - t[(4, 0)]) / 36
+        e5, e10 = (t[(20, e)] - t[(20, 0)] for e in (5, 10))
+        ratio = e10 / (2 * e5)
+        log(f"  {w} warps per SM: floor {t[(4, 0)] - 4 * slope:.4f} ms, {slope:.5f} ms per "
+            f"multiply-add pass, {e10 / 10:.5f} ms per exp pass; 5 exp passes take "
+            f"{e5:.4f} ms, 10 take {e10:.4f} ms; linearity {ratio:.4f}")
+        if abs(ratio - 1) > EXP_LINEAR_TOL:
+            raise AssertionError(f"sol_probe at {w} warps per SM: 10 exp passes take "
+                                 f"{ratio:.4f} x twice 5's")
     return worst, times
 
 
@@ -1851,16 +1883,17 @@ def main() -> int:
     probe_launches = phase_probes()
     if probe_launches["sol_probe"] == 0:
         raise AssertionError(f"the probe path launched no sol_probe: {probe_launches}")
-    ms, plain, bound, by = probe_times[(40, 0)]  # the slope's heaviest configuration
+    # the slope's heaviest configuration at the first port's occupancy
+    ms, plain, bound, by = probe_times[((40, 0), 8)]
     entries.append({
         "name": "sol_probe", "route": "cuda", "source": "gsjax_torch/csrc/sol_probe.cu",
         "replaces": "scripts/_r4_session.py:321, scripts/_r5_session.py:327",
         "launches": probe_launches["sol_probe"], "max_abs_err": probe_err,
         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
         "library_ms": None,  # no single PyTorch call computes this
-        "configs": {f"k_ops={k[0]},k_exp={k[1]}": {"ms": t[0], "plain_ms": t[1],
-                                                   "bound_ms": t[2], "bound_by": t[3]}
-                    for k, t in probe_times.items()},
+        "configs": {f"k_ops={k[0]},k_exp={k[1]},warps_per_sm={w}": {
+            "ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3]}
+            for (k, w), t in probe_times.items()},
     })
     phase_bench()
     with tempfile.TemporaryDirectory() as tmp:

@@ -85,7 +85,8 @@ SOURCES = {
                          "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 3 + [_P]},
     # the speed-of-light probe (ops/cuda_probe.py)
     "sol_probe.cu": {"gsjax_sol_probe":
-                     [_P] * 3 + [_I] * 4 + [ctypes.POINTER(ctypes.c_float), _P]},
+                     [_P] * 3 + [_I] * 5 + [ctypes.POINTER(ctypes.c_float), _P],
+                     "gsjax_sol_probe_info": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]},
 }
 HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (
@@ -475,7 +476,7 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
     live_steps = torch.zeros((num_tiles, NWARP, n_batch), dtype=torch.int64, device=dev)
     if num_tiles == 0 or n_pairs == 0:
         if return_evals:
-            return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps)
+            return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, n_live)
         return out
     means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)
@@ -546,7 +547,7 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
         T_c = T_c / suffix[..., 0]
         S = S + q.sum(-1)
     if return_evals:
-        return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, steps_walked)
+        return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, n_live, steps_walked)
     return out
 
 
@@ -580,7 +581,7 @@ def footprint_box_plain(means2d, conics, opacities):
     return torch.where(finite[:, None], box, full)
 
 
-def _bwd_warp_stats(ncon, maxn, live_steps, steps_walked=0):
+def _bwd_warp_stats(ncon, maxn, live_steps, n_live, steps_walked=0):
     """The backward kernel's warp-level work on these inputs, in (pair,
     warp) steps — one warp evaluating one pair for its 32 pixels:
 
@@ -596,6 +597,8 @@ def _bwd_warp_stats(ncon, maxn, live_steps, steps_walked=0):
       ``BWD_GROUP`` slots with such steps per batch of ``BWD_BATCH``
       pairs, so per (tile, warp, batch) the ceiling of its steps over
       ``BWD_GROUP``;
+    - ``contrib``: contributing (pair, pixel) evaluations, the sum of
+      ``n_live``;
     - ``maxn``: the (T,) int64 per-tile largest ``n_contrib``."""
     num_tiles = ncon.shape[0]
     wmax = ncon.view(num_tiles, NWARP, 32).amax(2) if num_tiles else ncon.new_zeros((0,))
@@ -606,6 +609,7 @@ def _bwd_warp_stats(ncon, maxn, live_steps, steps_walked=0):
         "steps_contrib": int(live_steps.sum()),
         "reductions": int(torch.div(live_steps + BWD_GROUP - 1, BWD_GROUP,
                                     rounding_mode="floor").sum()),
+        "contrib": int(n_live.sum()),
         "maxn": maxn,
     }
 

@@ -4,12 +4,15 @@ plain version and inputs.
 Counterpart of the two Pallas probes named ``sol_kernel`` in gsjax's
 measurement sessions (``scripts/_r4_session.py`` stage ``vpu``,
 ``scripts/_r5_session.py`` stage ``vpux``). The probe runs the compositing
-kernels' skeleton — one block per tile, the tile's 128-pair window staged
-chunk by chunk — with ``k_ops`` full-width multiply-add passes and
-``k_exp`` exp passes per chunk over a (256 pixels, 128 lanes) carry.
+kernels' skeleton — 256-thread blocks over tiles, the tile's 128-pair
+window staged chunk by chunk — with ``k_ops`` full-width multiply-add
+passes and ``k_exp`` exp passes per chunk over a (256 pixels, 128 lanes)
+carry, at 8, 24 or 48 resident warps per SM (:data:`OCCUPANCIES`: the
+first port's design, ``composite_bwd``'s and the forward kernels').
 Sweeping ``k_ops`` gives the skeleton's floor (the intercept) and the time
-of one pass (the slope); sweeping ``k_exp`` the time of one exp pass. See
-``csrc/sol_probe.cu`` for the exact semantics.
+of one pass (the slope); sweeping ``k_exp`` the time of one exp pass; at
+each occupancy, the card's measured float32 and exp ceilings there. See
+``csrc/sol_probe.cu`` for the exact semantics and the design.
 
 An exp pass is ``x = exp(a * x - b[j])``. The sessions' coefficients
 (:data:`PROBE_EXP`, the default) make it contract to exp's fixed point:
@@ -23,7 +26,9 @@ from the kernel's parameter, in an instance of their own.
 
 - :func:`sol_probe` launches the kernel (counted in ``sol_probe.launches``)
   for CUDA tensors and takes :func:`sol_probe_plain` for CPU tensors.
-  It takes only the swept pairs :data:`SWEPT`, each a compiled instance.
+  It takes only the swept pairs :data:`SWEPT` at :data:`OCCUPANCIES`, each
+  a compiled instance; :func:`sol_probe_info` reads an instance's
+  registers, spills and resident warps on the card.
 - :func:`sol_probe_plain`, plain torch, takes any pair.
 - Both take ``exp_coefs``, ``(a, (b_0, ..., b_9))``: :data:`PROBE_EXP` or
   :func:`check_exp_coefs`.
@@ -45,6 +50,9 @@ MAX_EXP = 10  # exp offsets the kernel takes (csrc/sol_probe.cu)
 # (k_ops, k_exp) of the sessions' sweeps: vpu k4 / k40, vpux f20e0 / f20e5 /
 # f20e10 (vpux's w20e0, a while_loop A/B of the TPU kernel, is (20, 0))
 SWEPT = ((4, 0), (40, 0), (20, 0), (20, 5), (20, 10))
+# resident warps per SM of the instances: the first port's one block of 8
+# warps, composite_bwd's 3 blocks and the forward kernels' 6
+OCCUPANCIES = (8, 24, 48)
 
 # float32 constants of the chains, rounded from the Python floats as JAX
 # rounds them against a float32 array
@@ -157,18 +165,25 @@ def sol_probe_plain(tile_start, table, k_ops: int, k_exp: int, exp_coefs=PROBE_E
     return x.sum(1, keepdim=True).expand(num_tiles, PIX).contiguous()
 
 
-def sol_probe(tile_start, table, k_ops: int, k_exp: int, exp_coefs=PROBE_EXP):
+def _check_instance(k_ops, k_exp, warps_per_sm):
+    if (k_ops, k_exp) not in SWEPT or warps_per_sm not in OCCUPANCIES:
+        raise ValueError(f"(k_ops, k_exp) = ({k_ops}, {k_exp}) at {warps_per_sm} warps per "
+                         f"SM has no kernel instance; swept pairs: {SWEPT}, occupancies: "
+                         f"{OCCUPANCIES}")
+
+
+def sol_probe(tile_start, table, k_ops: int, k_exp: int, exp_coefs=PROBE_EXP,
+              warps_per_sm: int = 8):
     """The speed-of-light probe over ``tile_start`` (T + 1,) int32 and the
     (n_chunks, 8, 128) float32 ``table`` (:func:`sol_probe_inputs`) with
     ``k_ops`` multiply-add and ``k_exp`` exp passes per chunk (coefficients
-    ``exp_coefs``). Returns
-    ``(T, 256)`` float32. Only the pairs of :data:`SWEPT` have a compiled
-    instance; any other raises. CUDA tensors launch the kernel on the
-    current stream (counted in ``sol_probe.launches``) or raise; CPU
+    ``exp_coefs``), run at ``warps_per_sm`` resident warps per SM. Returns
+    ``(T, 256)`` float32, which does not depend on the occupancy. Only the
+    pairs of :data:`SWEPT` at :data:`OCCUPANCIES` have a compiled instance;
+    any other raises, on every device. CUDA tensors launch the kernel on
+    the current stream (counted in ``sol_probe.launches``) or raise; CPU
     tensors take :func:`sol_probe_plain`."""
-    if (k_ops, k_exp) not in SWEPT:
-        raise ValueError(f"(k_ops, k_exp) = ({k_ops}, {k_exp}) has no kernel instance; "
-                         f"swept pairs: {SWEPT}")
+    _check_instance(k_ops, k_exp, warps_per_sm)
     _check(tile_start, table)
     _check_coefs(k_exp, exp_coefs)
     dev = table.device
@@ -181,9 +196,29 @@ def sol_probe(tile_start, table, k_ops: int, k_exp: int, exp_coefs=PROBE_EXP):
     with torch.cuda.device(dev):
         _launch("sol_probe", load_library().gsjax_sol_probe, tile_start.data_ptr(),
                 table.data_ptr(), out.data_ptr(), num_tiles, table.shape[0], k_ops, k_exp,
-                coefs)
+                warps_per_sm, coefs)
     sol_probe.launches += 1
     return out
 
 
 sol_probe.launches = 0
+
+
+def sol_probe_info(k_ops: int, k_exp: int, warps_per_sm: int = 8, check: bool = False):
+    """The compiled instance's launch figures on the current card (the
+    checking instance of an exp pair if ``check``): ``registers`` a
+    thread, ``local_bytes`` a thread (spills; 0 when nothing spilled),
+    ``blocks_per_sm`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at its launch configuration), ``threads``, ``smem_bytes`` (dynamic
+    shared memory a block asks for, which pins the occupancy) and
+    ``resident_warps``, which equals ``warps_per_sm``. Needs CUDA."""
+    _check_instance(k_ops, k_exp, warps_per_sm)
+    if not torch.cuda.is_available():
+        raise RuntimeError("sol_probe_info reads the card; CUDA is not available")
+    v = (ctypes.c_int * 5)()
+    err = load_library().gsjax_sol_probe_info(k_ops, k_exp, warps_per_sm, int(check), v)
+    if err != 0:
+        raise RuntimeError(f"sol_probe_info: CUDA error {err}")
+    info = dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads", "smem_bytes"), v))
+    info["resident_warps"] = info["blocks_per_sm"] * info["threads"] // 32
+    return info

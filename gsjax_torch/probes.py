@@ -59,9 +59,13 @@ that no pair is dropped (the sessions' 16 drops 16,838). Stages:
 - ``vpu`` (``_r4_session.py:281-394``) and ``vpux``
   (``_r5_session.py:292-413``): the speed-of-light probe
   (``ops/cuda_probe.sol_probe``) at (k_ops, k_exp) = (4, 0), (40, 0) and
-  (20, 0), (20, 5), (20, 10): ms per configuration, the skeleton's floor
-  (the intercept of k 4 and 40), the ms per full-width multiply-add pass
-  (their slope) and the ms per exp pass (from k_exp 0 and 10). The
+  (20, 0), (20, 5), (20, 10), each at 8, 24 and 48 resident warps per SM
+  (``cuda_probe.OCCUPANCIES``: the first port's design, ``composite_bwd``'s
+  and the forward kernels' occupancy): ms per configuration and, per
+  occupancy, the skeleton's floor (the intercept of k 4 and 40), the ms
+  per full-width multiply-add pass (their slope) and the float32 rate it
+  gives, and the ms per exp pass (from k_exp 0 and 10) and the exp passes
+  a second: the card's measured ceilings at those occupancies. The
   sessions' ``w20e0`` (``use_while=True``) is an A/B of the TPU kernel's
   loop construct; CUDA has one loop, so it is the (20, 0) instance timed
   again.
@@ -308,14 +312,16 @@ def stage_fwdcull(timed, scene):
     return ms
 
 
-def stage_probe(name, configs, timed, probe_inputs):
+def stage_probe(name, configs, timed, probe_inputs, warps_per_sm):
     from gsjax_torch.ops.cuda_probe import sol_probe
 
     tile_start, table = probe_inputs
     ms = {}
     for tag, (k_ops, k_exp) in configs.items():
-        ms[tag] = timed(lambda eps, _k=(k_ops, k_exp): sol_probe(tile_start, table, *_k)) * 1e3
-        rec = {"stage": name, "cfg": tag, "k_ops": k_ops, "k_exp": k_exp, "ms": ms[tag]}
+        ms[tag] = timed(lambda eps, _k=(k_ops, k_exp): sol_probe(
+            tile_start, table, *_k, warps_per_sm=warps_per_sm)) * 1e3
+        rec = {"stage": name, "cfg": tag, "k_ops": k_ops, "k_exp": k_exp,
+               "warps_per_sm": warps_per_sm, "ms": ms[tag]}
         if tag == "w20e0":
             rec["note"] = ("the TPU probe's while_loop A/B; CUDA has one loop: the (20, 0) "
                            "instance timed again")
@@ -354,7 +360,9 @@ def run(stages, out: bool, device) -> int:
     from gsjax_torch.bench_scene import toy_scene
     from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.ops import cuda_probe as cp
-    from gsjax_torch.utils.profiling import card, ceilings_path, measure_rtt, state_frame_inputs
+    from gsjax_torch.utils.profiling import (
+        card, ceilings_path, measure_rtt, sol_probe_work, state_frame_inputs,
+    )
     from gsjax_torch.utils.profiling import timed as _timed
 
     rtt = measure_rtt(device)  # reported only
@@ -403,22 +411,29 @@ def run(stages, out: bool, device) -> int:
     if "vpu" in stages or "vpux" in stages:
         (tile_start, *_), _ = state_frame_inputs(scene[0], scene[1], _settings())
         inputs = (tile_start, cp.sol_probe_inputs(tile_start, seed=0))
-        probe = {}
-        if "vpu" in stages:
-            ms = stage_probe("vpu", VPU, timed, inputs)
-            probe["ms"] = dict(ms)
-            slope = (ms["k40"] - ms["k4"]) / 36
-            probe["ms_per_fma_pass"] = slope
-            probe["floor_ms"] = ms["k4"] - 4 * slope
-            log({"stage": "vpu", "cfg": "fit", "floor_ms": probe["floor_ms"],
-                 "ms_per_fma_pass": slope})
-        if "vpux" in stages:
-            ms = stage_probe("vpux", VPUX, timed, inputs)
-            probe.setdefault("ms", {}).update(ms)
-            probe["ms_per_exp_pass"] = (ms["f20e10"] - ms["f20e0"]) / 10
-            log({"stage": "vpux", "cfg": "fit", "ms_per_exp_pass": probe["ms_per_exp_pass"],
-                 "ms_per_exp_pass_from_e5": (ms["f20e5"] - ms["f20e0"]) / 5})
-        ceilings["sol_probe"] = probe
+        elements = sol_probe_work(tile_start, 0, 0)[2]
+        ceilings["sol_probe"] = {"elements": elements}
+        for w in cp.OCCUPANCIES:
+            probe = ceilings["sol_probe"][f"{w}_warps_per_sm"] = {"ms": {}}
+            if "vpu" in stages:
+                ms = stage_probe("vpu", VPU, timed, inputs, w)
+                probe["ms"].update(ms)
+                slope = (ms["k40"] - ms["k4"]) / 36
+                probe["ms_per_fma_pass"] = slope
+                probe["floor_ms"] = ms["k4"] - 4 * slope
+                probe["f32_per_s"] = 2 * elements / (slope * 1e-3)  # measured multiply-adds
+                log({"stage": "vpu", "cfg": "fit", "warps_per_sm": w,
+                     "floor_ms": probe["floor_ms"], "ms_per_fma_pass": slope,
+                     "f32_per_s": probe["f32_per_s"]})
+            if "vpux" in stages:
+                ms = stage_probe("vpux", VPUX, timed, inputs, w)
+                probe["ms"].update(ms)
+                probe["ms_per_exp_pass"] = (ms["f20e10"] - ms["f20e0"]) / 10
+                probe["exp_pass_per_s"] = elements / (probe["ms_per_exp_pass"] * 1e-3)
+                log({"stage": "vpux", "cfg": "fit", "warps_per_sm": w,
+                     "ms_per_exp_pass": probe["ms_per_exp_pass"],
+                     "ms_per_exp_pass_from_e5": (ms["f20e5"] - ms["f20e0"]) / 5,
+                     "exp_pass_per_s": probe["exp_pass_per_s"]})
 
     launches = {k.__name__: k.launches for k in kernels}
     if out:

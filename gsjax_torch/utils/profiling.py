@@ -23,8 +23,8 @@ The work counts live here too, so that ``chip_smoke.py``, the bench and
 ``PERF.md`` share one count: :func:`frame_inputs` and
 :func:`state_frame_inputs` (one frame's kernel inputs),
 :func:`fwd_work` and :func:`bwd_work` (the forward and backward kernels'
-warp-level work), :func:`composite_work`, :func:`sol_probe_work` and
-:func:`bound_ms`.
+warp-level work, with their exps), :func:`composite_work`,
+:func:`sol_probe_work` and :func:`bound_ms`.
 
 Everything that times raises on a device that is not CUDA: a CPU time is
 no measurement of the card.
@@ -43,6 +43,11 @@ import torch
 # the tensor cores (both at the 700 W power limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# exps a second on the special-function units (MUFU.EX2): 16 results a
+# clock an SM (the CUDA C++ programming guide's arithmetic-instruction
+# throughput table, compute capability 9.0) x 132 SMs x 1.98 GHz, the clock
+# at which 132 SMs x 128 lanes x 2 operations give the 67 TFLOP/s above
+PEAK_EXP_PER_S = 132 * 16 * 1.98e9
 # Forward: every pixel of a (pair, warp) step that the per-warp cull leaves
 # tests the pair: dx, dy (2), the quadratic form (11), the exp (1), op * exp
 # (1), the 0.99 clamp (1) — the conic is positive definite, so power <= 0
@@ -279,14 +284,17 @@ def fwd_work(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int) ->
     without the cull (``steps_exit_bound``), after the per-warp cull
     (``steps_walked``) and with a blending lane (``steps_blend``); (pair,
     pixel) evaluations up to each pixel's exit (``evals``) and blends
-    (``blends``); and ``walked_share``, the steps the cull leaves."""
+    (``blends``); ``walked_share``, the steps the cull leaves; and
+    ``exps``, one per pixel of a walked step (every lane of a step the
+    cull leaves tests its pair, and the test takes the exp)."""
     from gsjax_torch.ops.cuda_composite import composite_fwd_plain
 
     with torch.no_grad():
         stats = composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y,
                                     return_evals=True)[3]
     bound = stats["steps_exit_bound"]
-    return {**stats, "walked_share": stats["steps_walked"] / bound if bound else 0.0}
+    return {**stats, "walked_share": stats["steps_walked"] / bound if bound else 0.0,
+            "exps": 32 * stats["steps_walked"]}
 
 
 def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk: int,
@@ -318,18 +326,18 @@ def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk
 
 
 def sol_probe_work(tile_start, k_ops: int, k_exp: int) -> tuple:
-    """``(bytes, float32 operations, elements)`` of one probe launch:
+    """``(bytes, float32 operations, elements, exps)`` of one probe launch:
     sum_t nch_t x 256 x 128 elements, each taking the row add, two
     operations per multiply-add and three per exp pass (the exp counted as
-    one); bytes: row 0 of every chunk (512 B), ``tile_start`` and the
-    output."""
+    one), and ``k_exp`` exps; bytes: row 0 of every chunk (512 B),
+    ``tile_start`` and the output."""
     from gsjax_torch.ops.cuda_probe import LANES, windows
 
     chunks = int(windows(tile_start)[1].sum())
     elements = chunks * 256 * LANES
     n_tiles = tile_start.numel() - 1
     bytes_ = chunks * LANES * 4 + tile_start.numel() * 4 + n_tiles * 256 * 4
-    return bytes_, elements * (1 + 2 * k_ops + 3 * k_exp), elements
+    return bytes_, elements * (1 + 2 * k_ops + 3 * k_exp), elements, elements * k_exp
 
 
 def bwd_work(stats: dict) -> dict:
@@ -340,7 +348,8 @@ def bwd_work(stats: dict) -> dict:
     their shuffles against the first version's (one 45-shuffle butterfly
     per contributing step), and the tail: the per-tile largest
     ``n_contrib`` (max, p99, mean) and the share of the tile-bound walk in
-    the deepest 1% of tiles."""
+    the deepest 1% of tiles; and ``exps``, one per contributing (pair,
+    pixel), the only ones whose alpha the kernel needs."""
     maxn = stats["maxn"].to(torch.float64)
     deep = maxn.sort(descending=True).values
     n_deep = max(1, -(-deep.numel() // 100)) if deep.numel() else 0
@@ -357,16 +366,22 @@ def bwd_work(stats: dict) -> dict:
         "maxn_p99": float(torch.quantile(maxn, 0.99)) if deep.numel() else 0.0,
         "maxn_mean": float(maxn.mean()) if deep.numel() else 0.0,
         "walk_share_deepest_1pct": float(deep[:n_deep].sum()) / total if total else 0.0,
+        "exps": stats["contrib"],
     }
 
 
-def bound_ms(bytes_: int, ops: int) -> tuple:
-    """The least time the card could take: ``(ms, "bytes" or
-    "operations")``, the larger of bytes over the memory rate and
-    operations over the float32 rate (the data sheet's)."""
-    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(bytes_: int, ops: int, exps: int = 0) -> tuple:
+    """The least time the card could take: ``(ms, "bytes", "operations" or
+    "exps")``, the largest of bytes over the memory rate, float32
+    operations over the float32 rate (the data sheet's) and exps over the
+    special-function units' rate (:data:`PEAK_EXP_PER_S`). An exp stays
+    counted in ``ops`` as one operation; its MUFU term is a separate floor
+    that can only raise the bound."""
+    terms = {"bytes": bytes_ / PEAK_BYTES_PER_S * 1e3,
+             "operations": ops / PEAK_F32_PER_S * 1e3,
+             "exps": exps / PEAK_EXP_PER_S * 1e3}
+    by = max(terms, key=terms.get)  # the first of equal terms
+    return terms[by], by
 
 
 def phase_timings(

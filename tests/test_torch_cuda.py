@@ -407,26 +407,34 @@ def test_autograd_path_launches_the_training_kernels():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warps", [8, 24, 48], ids=["w8", "w24", "w48"])
 @pytest.mark.parametrize("k", [(4, 0), (40, 0), (20, 0), (20, 5), (20, 10)],
                          ids=["k4", "k40", "f20e0", "f20e5", "f20e10"])
-def test_sol_probe_matches_plain_version(k):
-    """The speed-of-light probe against its plain version: relative 2e-5
-    (one FMA against two roundings, and another order of the lane sum;
-    measured 1.9e-6 at the 1080p bench frame). Tiles: empty at an aligned
-    and at an unaligned start, 1 to 300 pairs, then 300 random ones."""
-    _check_sol_probe(k, cp.PROBE_EXP)
+def test_sol_probe_matches_plain_version(k, warps):
+    """The speed-of-light probe against its plain version at each
+    occupancy: relative 2e-5 (one FMA against two roundings, and another
+    order of the lane sum; measured 1.9e-6 at the 1080p bench frame).
+    Tiles: empty at an aligned and at an unaligned start, 1 to 300 pairs,
+    then 300 random ones. The instance runs at its occupancy with nothing
+    spilled."""
+    _check_sol_probe(k, cp.PROBE_EXP, warps)
+    info = cp.sol_probe_info(*k, warps)
+    assert info["resident_warps"] == warps and info["local_bytes"] == 0, info
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("warps", [8, 24, 48], ids=["w8", "w24", "w48"])
 @pytest.mark.parametrize("k_exp", [5, 10], ids=["f20e5", "f20e10"])
-def test_sol_probe_check_coefs_match_plain_version(k_exp):
+def test_sol_probe_check_coefs_match_plain_version(k_exp, warps):
     """The exp instances under the check coefficients, where every pass and
     chunk shows in the output (under the sessions' own, an exp pass forgets
     its input and the comparison above cannot see a wrong pass count)."""
-    _check_sol_probe((20, k_exp), cp.check_exp_coefs(20))
+    _check_sol_probe((20, k_exp), cp.check_exp_coefs(20), warps)
+    info = cp.sol_probe_info(20, k_exp, warps, check=True)
+    assert info["resident_warps"] == warps and info["local_bytes"] == 0, info
 
 
-def _check_sol_probe(k, coefs):
+def _check_sol_probe(k, coefs, warps):
     dev = _cuda()
     counts = np.concatenate([[0, 5, 0, 1, 127, 128, 130, 300],
                              np.random.default_rng(0).integers(0, 700, 300)])
@@ -434,7 +442,7 @@ def _check_sol_probe(k, coefs):
                       device=dev)
     table = cp.sol_probe_inputs(ts, seed=3)
     before = cp.sol_probe.launches
-    got = cp.sol_probe(ts, table, *k, coefs)
+    got = cp.sol_probe(ts, table, *k, coefs, warps_per_sm=warps)
     torch.cuda.synchronize()
     assert cp.sol_probe.launches == before + 1
     want = cp.sol_probe_plain(ts, table, *k, coefs)

@@ -186,9 +186,10 @@ def test_probe_work_counts_the_windows(probe_inputs):
     tile_start, _ = probe_inputs
     # windows: 0, 1, 1, 1, 2, 2, 2, 3 chunks
     chunks = 12
-    bytes_, ops, elements = sol_probe_work(tile_start, 20, 5)
+    bytes_, ops, elements, exps = sol_probe_work(tile_start, 20, 5)
     assert elements == chunks * PIX * 128
     assert ops == elements * (1 + 2 * 20 + 3 * 5)
+    assert exps == elements * 5
     assert bytes_ == chunks * 512 + 9 * 4 + 8 * PIX * 4
 
 
