@@ -109,13 +109,13 @@ def knn_mean_sq_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
     """Mean squared distance of each point to its k nearest neighbors.
 
     Host-side replacement for the reference's ``simple_knn._C.distCUDA2``
-    CUDA kernel (reference: scene/gaussian_model.py:134): exact kNN with
-    scipy's KD-tree, the search gsjax falls back to. Runs once at init."""
-    from scipy.spatial import cKDTree
+    CUDA kernel (reference: scene/gaussian_model.py:134): the exact C++
+    KD-tree of :mod:`gsjax_torch.native`, gsjax's, with ``min(k, n - 1)``
+    neighbours (0 for one point). Runs once at init; raises when the tree
+    cannot be built."""
+    from gsjax_torch.native import knn_mean_sq_dist as native_knn
 
-    pts = np.asarray(points, dtype=np.float32)
-    d, _ = cKDTree(pts).query(pts, k=k + 1, workers=-1)  # includes self
-    return (d[:, 1:] ** 2).mean(axis=1).astype(np.float32)
+    return native_knn(points, k)
 
 
 def create_from_pcd(points, colors, spatial_lr_scale: float, max_sh_degree: int = 3,

@@ -140,8 +140,11 @@ def build_tile_bins(
 
     ``depth_bits`` is the width of the quantized depth in the sort key;
     by default all that the tile id leaves of 32 bits
-    (:func:`key_depth_bits` of the tile count). A strip of a frame passes
-    the frame's, so that it sorts its pairs as the frame does."""
+    (:func:`key_depth_bits` of the tile count), as gsjax's (whose
+    ``build_tile_bins`` has no such argument) and the sharded path's strips.
+    A strip given the frame's width sorts its pairs as the frame does
+    (``tests/test_torch_cuda.py`` holds a strip's kernels against the
+    frame's tiles so)."""
     n = splats.depths.shape[0]
     dev = splats.depths.device
     mt = max_tiles_per_gauss

@@ -44,7 +44,7 @@ import torch
 
 from gsjax_torch.data.cameras import RenderCamera, index_render_camera
 from gsjax_torch.models.gaussians import GaussianState, activated_params
-from gsjax_torch.ops.binning import build_tile_bins, key_depth_bits
+from gsjax_torch.ops.binning import build_tile_bins
 from gsjax_torch.ops.composite import assemble_image, composite_tiles
 from gsjax_torch.ops.cuda_composite import composite, composite_infer, pack_gauss_attrs
 from gsjax_torch.ops.projection import TILE, Splats, num_tiles, preprocess
@@ -244,6 +244,23 @@ def strip_splats(splats: Splats, y0: int, strips_y: int) -> Splats:
     )
 
 
+def bin_strip(alls: Splats, y0: int, strips_y: int, tiles_x: int,
+              settings: RasterizeSettings, gauss: int):
+    """Bin the tile strip of rows [y0, y0 + strips_y) from every rank's
+    splats ``alls``, as gsjax's ``_render_strip`` bins it
+    (gsjax/parallel/shard.py:228-244): the rects clipped to the strip, a
+    ``max_pairs // gauss`` budget (at least 1024), no ``exact_depth_sort``
+    whatever the settings say, and the depth keyed with what the strip's
+    own tile count leaves of the key (finer than the whole frame's: 20
+    bits against 19 at 1080p over two strips)."""
+    return build_tile_bins(
+        strip_splats(alls, y0, strips_y), tiles_x, strips_y,
+        max(settings.max_pairs // gauss, 1024),
+        max_tiles_per_gauss=settings.max_tiles_per_gauss,
+        tier_frac=settings.tier_frac, expansion=settings.expansion,
+    )
+
+
 def _a2a_rows_auto(n_local: int, gauss_size: int, a2a_rows: int) -> int:
     """4x the uniform per-destination share, 128-aligned, unless pinned."""
     if a2a_rows:
@@ -274,19 +291,7 @@ def _strip_bins(params_shard, active_shard, sh_degree: int, camera: RenderCamera
         exch_dropped = torch.zeros((), dtype=torch.int32, device=means3d.device)
 
     y0 = mesh.g * strips_y
-    # gsjax bins the strip without exact_depth_sort whatever the settings
-    # say (gsjax/parallel/shard.py:239-244); kept for parity. The depth key
-    # has the whole frame's width (gsjax's strip, with fewer tiles, keys
-    # finer depths): equal keys keep the frame's order, so a strip sorts its
-    # pairs as the frame does wherever the tie-break agrees (the grid
-    # expansion's: the gaussian index)
-    bins = build_tile_bins(
-        strip_splats(alls, y0, strips_y), tiles_x, strips_y,
-        max(settings.max_pairs // mesh.gauss, 1024),
-        max_tiles_per_gauss=settings.max_tiles_per_gauss,
-        tier_frac=settings.tier_frac, expansion=settings.expansion,
-        depth_bits=key_depth_bits(tiles_x * tiles_y),
-    )
+    bins = bin_strip(alls, y0, strips_y, tiles_x, settings, mesh.gauss)
     return splats, alls, bins, y0, exch_dropped
 
 
@@ -325,6 +330,17 @@ def _render_strip(params_shard, active_shard, sh_degree: int, camera: RenderCame
     tiles_x = num_tiles(camera.width, camera.height)[0]
     splats, alls, bins, y0, exch_dropped = _strip_bins(
         params_shard, active_shard, sh_degree, camera, offset_shard, settings, strips_y, mesh)
+    strip_img, strip_T, tile_capped = blend_strip(alls, bins, y0, strips_y, tiles_x,
+                                                  camera.width, bg, settings)
+    return (strip_img, strip_T, splats.radii, bins.num_dropped, bins.num_mt_capped,
+            bins.num_tier_capped, tile_capped, exch_dropped)
+
+
+def blend_strip(alls: Splats, bins, y0: int, strips_y: int, tiles_x: int, width: int, bg,
+                settings: RasterizeSettings):
+    """Blend the strip of tile rows [y0, y0 + strips_y) from its ``bins``
+    (:func:`bin_strip`) over the splats ``alls``: (strip_image
+    (strips_y*16, width, 3), strip_T, num_tile_capped)."""
     dev = alls.means2d.device
     backend = settings.backend
     if backend == "auto":
@@ -345,10 +361,9 @@ def _render_strip(params_shard, active_shard, sh_degree: int, camera: RenderCame
             alls.opacities, tiles_x, strips_y, settings.max_splats_per_tile, settings.chunk,
             pixel_origin=(0.0, float(y0 * TILE)),
         )
-    strip_img, strip_T = assemble_image(tile_colors, tile_T, bg, tiles_x, strips_y,
-                                        camera.width, strips_y * TILE)
-    return (strip_img, strip_T, splats.radii, bins.num_dropped, bins.num_mt_capped,
-            bins.num_tier_capped, tile_capped, exch_dropped)
+    strip_img, strip_T = assemble_image(tile_colors, tile_T, bg, tiles_x, strips_y, width,
+                                        strips_y * TILE)
+    return strip_img, strip_T, tile_capped
 
 
 # ---------------------------------------------------------------------------

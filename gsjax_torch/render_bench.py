@@ -13,7 +13,8 @@ Frames are timed with CUDA events, the fewest ms per frame of 3 passes
 over the views; each frame's input is perturbed (gsjax's ``eps``) and its
 drop counter read. A run in which any timed view dropped a pair prints no
 frames/s and exits 1: the number would not be of a drop-free
-configuration.
+configuration. So its budget probe measures every timed view, where
+gsjax's measures four of them.
 
 Usage:
     python -m gsjax_torch.render_bench -m output/synth_garden \\
@@ -88,8 +89,10 @@ def main(argv=None):
 
     # budget-probe against the loaded model: static defaults silently drop
     # the widest trained gaussians' tiles, inflating fps while darkening
-    # renders — the fps claim must come from a drop-free configuration
-    settings = probe_rasterize_settings(state, cams, w, h)
+    # renders — the fps claim must come from a drop-free configuration. The
+    # probe measures every timed view (gsjax's measures four of them and
+    # only warns after a drop): a view it skipped can hold a wider gaussian
+    settings = probe_rasterize_settings(state, cams, w, h, every_view=True)
     settings = dataclasses.replace(settings, backend="kernel")
     if args.tier_frac is not None:
         settings = dataclasses.replace(settings, tier_frac=args.tier_frac)

@@ -99,17 +99,18 @@ def default_rasterize_settings(
 
 
 @torch.no_grad()
-def _probe_initial_budgets(settings, state, train_cams, width, height, inference=False):
-    """Measure the model's footprints on up to four cameras and size the
-    per-gaussian tile cap, the pair budget, ``tier_frac`` and the
-    expansion before the first render or train step — gsjax's probe, same
-    decisions. Training (``inference=False``) keeps twice the probed pairs
+def _probe_initial_budgets(settings, state, train_cams, width, height, inference=False,
+                           every_view=False):
+    """Measure the model's footprints on up to four cameras (every camera
+    with ``every_view``) and size the per-gaussian tile cap, the pair
+    budget, ``tier_frac`` and the expansion before the first render or
+    train step — gsjax's probe, same decisions. Training (``inference=False``) keeps twice the probed pairs
     up to 1<<24 (densification adds gaussians, and the trainer reacts to
     overflow); inference sizes the budget at 1.5x the probe."""
     tiles_x, tiles_y = num_tiles(width, height)
     means3d, scales, quats, opac, shs = activated(state)
 
-    probe_cams = train_cams[:: max(1, len(train_cams) // 4)][:4]
+    probe_cams = train_cams if every_view else train_cams[:: max(1, len(train_cams) // 4)][:4]
     mt_need, pairs_need = 0, 0
     frac_le_min = np.ones(len(_TIER_KS))
     for c in probe_cams:
@@ -200,13 +201,15 @@ def _probe_initial_budgets(settings, state, train_cams, width, height, inference
     )
 
 
-def probe_rasterize_settings(state, cams, width, height, base=None):
+def probe_rasterize_settings(state, cams, width, height, base=None, every_view=False):
     """Inference-time budget sizing: ``base`` (the heuristics when None)
     and an on-model footprint probe — what render.py and the viewers call
     before rendering a trained model, whose largest gaussians can span
-    hundreds of tiles."""
+    hundreds of tiles. The probe measures four of ``cams``, as gsjax's,
+    or all of them with ``every_view``."""
     s = base or default_rasterize_settings(width, height, state.capacity)
-    return _probe_initial_budgets(s, state, cams, width, height, inference=True)
+    return _probe_initial_budgets(s, state, cams, width, height, inference=True,
+                                  every_view=every_view)
 
 
 @dataclasses.dataclass

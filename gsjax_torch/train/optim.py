@@ -6,13 +6,16 @@ xyz on the exponential-decay schedule scaled by the scene radius, f_rest at
 feature_lr / 20, the rest at fixed rates.
 
 gsjax chains ``optax.scale_by_adam`` with a per-leaf learning-rate
-transform; the port uses ``torch.optim.Adam`` with one named group per
-parameter over the state's parameter tensors, which it updates in place.
-Before each step every group's lr is set from its schedule at
-``step = count + 1`` (reference iterations start at 1), as gsjax's
-``scale_by_group_lr`` does. Both apply the same bias-corrected update
-``lr * m_hat / (sqrt(v_hat) + eps)``; they differ only in float rounding
-(torch updates the first moment with ``lerp``, optax with a multiply-add).
+transform; the port keeps a ``torch.optim.Adam`` with one named group per
+parameter over the state's parameter tensors (so its state and
+``state_dict`` have Adam's layout: ``step``, ``exp_avg``, ``exp_avg_sq``),
+and its :meth:`GaussianAdam.step` applies optax's update in optax's float32
+arithmetic and order, which it updates in place:
+``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g g + b2 nu``, the bias
+corrections ``1 - b**count`` taken in float32 on the host,
+``u = (mu / bc1) / (sqrt(nu / bc2) + eps)``, ``p -= lr u``. Before each
+step every group's lr is set from its schedule at ``step = count + 1``
+(reference iterations start at 1), as gsjax's ``scale_by_group_lr`` does.
 
 :func:`adam_moments` / :func:`with_adam_moments` read and replace the
 moments (densification edits them), and :func:`opt_state_from_numpy` /
@@ -34,10 +37,26 @@ BETAS = (0.9, 0.999)
 EPS = 1e-15
 
 
+def _sqrt_(xs):
+    """Correctly rounded float32 square roots of the tensors ``xs``, in
+    place, as XLA's and CUDA's ``sqrt`` are. torch's vectorized CPU ``sqrt``
+    is not (it misrounds some float32 inputs by one ulp), so on the CPU
+    the root is taken in float64 and rounded once: exact, since a double
+    carries more than twice float32's digits plus two."""
+    if xs and xs[0].device.type == "cuda":
+        torch._foreach_sqrt_(xs)
+    else:
+        for x in xs:
+            x.copy_(torch.sqrt(x.double()))
+
+
 class GaussianAdam(torch.optim.Adam):
-    """``torch.optim.Adam`` over a state's six parameter tensors, one named
-    group each, with the learning rates of ``lr_fns`` (name -> (step ->
-    lr)). ``count`` is the number of applied steps (optax's count)."""
+    """A ``torch.optim.Adam`` over a state's six parameter tensors, one
+    named group each, with the learning rates of ``lr_fns`` (name -> (step
+    -> lr)) and optax's update (see the module docstring). ``count`` is the
+    number of applied steps (gsjax's lr count); each parameter's
+    ``state["step"]`` is Adam's own count (optax's
+    ``ScaleByAdamState.count``), a float32 CPU tensor as torch keeps it."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr_fns):
         groups = [{"params": [params[k]], "name": k, "lr": float(lr_fns[k](1))}
@@ -53,9 +72,53 @@ class GaussianAdam(torch.optim.Adam):
 
     @torch.no_grad()
     def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
         self.set_lrs()
-        super().step(closure)
+        b1, b2 = BETAS
+        ps, grads, mus, nus, bc1, bc2, lrs = [], [], [], [], [], [], []
+        for group in self.param_groups:
+            p = group["params"][0]
+            if p.grad is None:
+                continue
+            st = self.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32)
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["step"] += 1
+            # optax: 1 - decay ** count in float32 (a CPU scalar here: the
+            # host's powf is XLA CPU's, bit for bit, and no device sync)
+            count = st["step"].float().cpu()
+            bc1.append(float(1 - torch.tensor(b1, dtype=torch.float32) ** count))
+            bc2.append(float(1 - torch.tensor(b2, dtype=torch.float32) ** count))
+            ps.append(p)
+            grads.append(p.grad)
+            mus.append(st["exp_avg"])
+            nus.append(st["exp_avg_sq"])
+            lrs.append(group["lr"])
+        if not ps:
+            self.count += 1
+            return loss
+        # every product and sum rounds to float32 once, in optax's order;
+        # the foreach ops divide by a scalar exactly (no reciprocal)
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, sq)
+        den = torch._foreach_div(nus, bc2)
+        _sqrt_(den)
+        torch._foreach_add_(den, EPS)
+        upd = torch._foreach_div(mus, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, lrs)
+        torch._foreach_sub_(ps, upd)
         self.count += 1
+        return loss
 
     def param(self, name: str) -> torch.Tensor:
         return next(g["params"][0] for g in self.param_groups if g["name"] == name)

@@ -17,10 +17,11 @@ single process trains one scene. Example (2 scenes on 2 ranks, rank 0):
 The flags are the root script's plus ``--device`` (default ``cuda``). As
 there, the scenes share one resolution, the densify thresholds use the
 largest scene extent, and the capacity is fixed (densification drops what
-does not fit). Unlike there, each scene draws its cameras from a numpy
-generator of its own seeded by ``--seed``, and its densification noise
-likewise, so a scene trains the same whatever scenes share the run (gsjax
-interleaves every scene's draws from one generator). The last line of each
+does not fit), and the scenes draw their cameras in turn from one numpy
+generator seeded by ``--seed`` (:func:`sample_camera_indices`). Unlike
+there, the random backgrounds and the densification noise come from torch
+generators, which cannot draw what gsjax's JAX keys draw; every scene's
+densification noise is alike (gsjax folds the scene into its key). The last line of each
 rank's output is one JSON object: its scene, the per-scene losses of the
 last dispatch, the wall time and the compositing kernels' launch counts.
 """
@@ -32,6 +33,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 
 def build_parser():
@@ -57,6 +60,13 @@ def build_parser():
     return parser
 
 
+def sample_camera_indices(rng, cam_counts, n: int) -> np.ndarray:
+    """(S, n) camera indices for the next ``n`` steps: each scene's ``n``
+    draws from its own camera count, the scenes in turn from the one
+    generator ``rng`` (gsjax's ``train_multiscene.py:208-214``)."""
+    return np.stack([rng.integers(0, cam_counts[s], size=n) for s in range(len(cam_counts))])
+
+
 def _densify_key(seed: int, it: int, device):
     """The split noise's generator of a densification at ``it`` (gsjax
     folds the iteration and the scene into its key; here every scene draws
@@ -73,7 +83,6 @@ def main(argv=None):
 
     import random
 
-    import numpy as np
     import torch
 
     from gsjax_torch.configs import ModelParams, OptimizationParams
@@ -176,13 +185,15 @@ def main(argv=None):
 
     densify_step, reset_step = make_multi_scene_densify_step(opt, cfg, mesh)
 
-    # camera sampling: every rank draws the same (S, n) indices, each scene
-    # from its own generator
-    rngs = [np.random.default_rng(args.seed) for _ in range(n_scenes)]
+    # camera sampling: every rank draws the same (S, n) indices from one
+    # generator, the scenes in turn, as gsjax does; each scene's random
+    # backgrounds come from a generator of its own (a torch generator cannot
+    # draw what gsjax's jax.random.fold_in(key, it) keys draw)
+    rng = np.random.default_rng(args.seed)
     keys = [torch.Generator(device=dev).manual_seed(args.seed) for _ in range(n_scenes)]
 
     def sample_idx(n):
-        return np.stack([rngs[s].integers(0, cam_counts[s], size=n) for s in range(n_scenes)])
+        return sample_camera_indices(rng, cam_counts, n)
 
     events = sorted(e for e in (
         {args.iterations} | set(args.save_iterations)

@@ -34,7 +34,9 @@ def test_port_imports_without_jax_or_gsjax():
             "gsjax_torch.parallel", "gsjax_torch.parallel.multihost",
             "gsjax_torch.parallel.mesh", "gsjax_torch.parallel.comm",
             "gsjax_torch.parallel.shard", "gsjax_torch.parallel.multi_scene",
-            "gsjax_torch.train_multiscene", "gsjax_torch.scaling_bench"} <= set(mods)
+            "gsjax_torch.train_multiscene", "gsjax_torch.scaling_bench",
+            "gsjax_torch.native", "gsjax_torch.scale_model", "gsjax_torch.drop_ab",
+            "gsjax_torch.densify_grad_ab", "gsjax_torch.multichip_split"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -43,6 +45,9 @@ def test_port_imports_without_jax_or_gsjax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import numpy as np\n"
+        "from gsjax_torch.native import knn_mean_sq_dist\n"
+        "assert knn_mean_sq_dist(np.eye(3, dtype=np.float32), 2).tolist() == [2, 2, 2]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'gsjax')"
         " and sys.modules[m] is not None)\n"
         "assert not bad, bad\n"

@@ -211,11 +211,47 @@ def test_multi_scene_chained_step_matches_sequential(ranks):
         np.testing.assert_array_equal(got["chain_xyz"], got["seq_xyz"])
 
 
+def _gsjax_sample_idx(rng, cam_counts):
+    """gsjax's ``sample_idx`` (train_multiscene.py:208-214), taken from the
+    root script's source with ``ast``: it is a closure inside ``main``."""
+    import ast
+
+    import jax.numpy as jnp
+
+    with open(os.path.join(ROOT, "train_multiscene.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "sample_idx")
+    ns = {"rng": rng, "cam_counts": cam_counts, "n_scenes": len(cam_counts), "np": np,
+          "jnp": jnp}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), "train_multiscene.py", "exec"), ns)
+    return ns["sample_idx"]
+
+
+def test_camera_draws_match_gsjax():
+    """The port's per-dispatch camera indices for 3 scenes equal the
+    sequence gsjax's train_multiscene draws: one generator, the scenes in
+    turn, each from its own camera count."""
+    from gsjax_torch.train_multiscene import sample_camera_indices
+
+    cam_counts = np.array([7, 3, 12])
+    j_sample = _gsjax_sample_idx(np.random.default_rng(5), cam_counts)
+    rng = np.random.default_rng(5)
+    for n in (25, 25, 1, 7, 3, 25):  # chained dispatches cut short at events
+        want = np.asarray(j_sample(n))
+        got = sample_camera_indices(rng, cam_counts, n)
+        assert got.shape == want.shape == (3, n)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_train_multiscene_cli(tmp_path):
     """Two ranks, the fixture scene under two model paths: both exit 0 with
-    finite losses, each writes only its scene, and the two snapshots are
-    equal bit for bit (each scene draws from its own generator)."""
+    the same finite losses of both scenes, each writes only its scene, and
+    the two snapshots differ: the scenes draw their cameras in turn from one
+    generator, as gsjax's do (test_camera_draws_match_gsjax), so the same
+    scene trains on another camera sequence in each slot."""
     from fixtures import make_blender_scene
+    from gsjax_torch.data.ply import read_ply
     from gsjax_torch.parallel.multihost import spawn_ranks
 
     scene = str(tmp_path / "scene")
@@ -228,9 +264,11 @@ def test_train_multiscene_cli(tmp_path):
     done = [json.loads(r.stdout.strip().splitlines()[-1]) for r in res]
     assert [d["scene"] for d in done] == [0, 1]
     assert all(np.isfinite(d["losses"]).all() and len(d["losses"]) == 2 for d in done)
-    plys = [os.path.join(m, "point_cloud", "iteration_6", "point_cloud.ply") for m in models]
-    with open(plys[0], "rb") as a, open(plys[1], "rb") as b:
-        assert a.read() == b.read()
+    assert done[0]["losses"] == done[1]["losses"]
+    plys = [read_ply(os.path.join(m, "point_cloud", "iteration_6", "point_cloud.ply"))["vertex"]
+            for m in models]
+    assert all(np.isfinite(v).all() for p in plys for v in p.values())
+    assert any(not np.array_equal(plys[0][k], plys[1][k]) for k in plys[0])
     assert all(os.path.exists(os.path.join(m, "cameras.json")) for m in models)
 
 

@@ -455,3 +455,69 @@ def test_composite_tiles_pixel_origin_matches_gsjax():
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+
+
+@pytest.mark.parametrize("budget", [(1 << 16, 16), (2048, 4)], ids=["roomy", "capped"])
+def test_strip_bins_match_gsjax_strip_binning(scene, budget):
+    """``shard.bin_strip``, the sharded path's binning of a rank's strip,
+    against gsjax's ``_render_strip`` binning (gsjax/parallel/shard.py:
+    228-244: the rects clipped to the strip, ``build_tile_bins`` with the
+    depth keyed by the strip's own tile count) on the same splats, compact
+    expansion, both strips of a 64x64 frame (16 tiles: 27 depth bits; a
+    strip of 8: 28). The depths take 7 values, each split in two that tie
+    at the frame's 27 bits but not at the strip's 28: the keys (tile_start,
+    pair_tile), the pair order, the slots and every drop counter are
+    equal, and the frame's key width would order the pairs otherwise."""
+    import jax.numpy as jnp
+
+    from gsjax.models.gaussians import activated_params
+    from gsjax.ops.binning import build_tile_bins as j_bins
+    from gsjax.ops.projection import num_tiles, preprocess
+    from gsjax_torch.ops import RasterizeSettings
+    from gsjax_torch.ops.binning import build_tile_bins, key_depth_bits
+    from gsjax_torch.ops.projection import Splats
+    from gsjax_torch.parallel.shard import bin_strip, strip_splats
+
+    from conftest import make_test_camera
+
+    state, _, _ = scene
+    max_pairs, mt = budget
+    w = h = 64
+    tiles_x, tiles_y = num_tiles(w, h)
+    gauss, strips_y = 2, 2
+    cam = make_test_camera(w, h, seed=1).to_render_camera()
+    sp = preprocess(*activated_params(state.params), cam, int(state.active_sh_degree),
+                    active_mask=state.active)
+    frame_bits = key_depth_bits(tiles_x * tiles_y)
+    assert key_depth_bits(tiles_x * strips_y) == frame_bits + 1 == 28
+    i = np.arange(sp.depths.shape[0])
+    bits = (np.float32(5.0) + (i % 7).astype(np.float32) * np.float32(0.25)).view(np.int32)
+    bits = (bits >> (31 - frame_bits) << (31 - frame_bits)) + (i % 2) * (1 << (30 - frame_bits))
+    sp = sp._replace(depths=jnp.asarray(bits.astype(np.int32).view(np.float32)))
+    ts = Splats(*(torch.from_numpy(np.array(a)) for a in sp))
+    settings = RasterizeSettings(max_pairs=max_pairs, expansion="compact",
+                                 max_tiles_per_gauss=mt)
+    fields = ("pair_gauss", "pair_tile", "pair_slot", "tile_start", "num_pairs", "num_dropped",
+              "num_mt_capped", "num_tier_capped", "gauss_count")
+    for g in range(gauss):
+        y0 = g * strips_y
+        got = bin_strip(ts, y0, strips_y, tiles_x, settings, gauss)
+        # gsjax's _render_strip, lines 228-244
+        rmin_y = jnp.clip(sp.rect_min[:, 1] - y0, 0, strips_y)
+        rmax_y = jnp.clip(sp.rect_max[:, 1] - y0, 0, strips_y)
+        wx = sp.rect_max[:, 0] - sp.rect_min[:, 0]
+        local = sp._replace(
+            rect_min=jnp.stack([sp.rect_min[:, 0], rmin_y], axis=1),
+            rect_max=jnp.stack([sp.rect_max[:, 0], rmax_y], axis=1),
+            tiles_touched=jnp.where(sp.tiles_touched > 0, wx * (rmax_y - rmin_y), 0))
+        want = j_bins(local, tiles_x, strips_y, max(max_pairs // gauss, 1024),
+                      max_tiles_per_gauss=mt, expansion="compact")
+        for f in fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                          err_msg=f"strip {g} {f}")
+        if mt == 4:
+            assert int(got.num_mt_capped) > 0
+        framed = build_tile_bins(strip_splats(ts, y0, strips_y), tiles_x, strips_y,
+                                 max(max_pairs // gauss, 1024), max_tiles_per_gauss=mt,
+                                 expansion="compact", depth_bits=frame_bits)
+        assert not torch.equal(framed.pair_gauss, got.pair_gauss)

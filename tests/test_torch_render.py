@@ -356,6 +356,32 @@ def test_budget_probe_matches_gsjax(capsys):
         assert getattr(ts, f.name) == want, f.name
 
 
+def test_budget_probe_of_every_view():
+    """``every_view``: the probe measures all the cameras (render_bench's,
+    which refuses to print after a drop), not gsjax's four of them. A fifth
+    camera moved up to the scene, whose gaussians span more tiles, is seen
+    only so; its budgets cover every view's pairs and widest gaussian."""
+    from gsjax_torch.models.gaussians import activated
+    from gsjax_torch.ops.projection import preprocess
+    from gsjax_torch.train.loop import probe_rasterize_settings as t_probe
+
+    state = _carry(_gsjax_state(seed=3))
+    cams = [make_test_camera(640, 384, seed=s) for s in range(4)]
+    near = dataclasses.replace(cams[0], T=cams[0].T + np.array([0.0, 0.0, -3.0]))
+    tcams = [TCamera(uid=c.uid, image_name=c.image_name, R=c.R, T=c.T, fov_x=c.fov_x,
+                     fov_y=c.fov_y, width=c.width, height=c.height) for c in cams + [near]]
+    four = t_probe(state, tcams, 640, 384)
+    every = t_probe(state, tcams, 640, 384, every_view=True)
+    with torch.no_grad():
+        touched = [preprocess(*activated(state), c.to_render_camera("cpu"), 3,
+                              active_mask=state.active).tiles_touched for c in tcams]
+    assert every.max_tiles_per_gauss > four.max_tiles_per_gauss
+    assert every.max_tiles_per_gauss >= max(int(t.max()) for t in touched)
+    assert every.max_pairs >= 1.5 * max(int(t.sum()) for t in touched)
+    assert t_probe(state, tcams[:4], 640, 384, every_view=True) == t_probe(state, tcams[:4],
+                                                                          640, 384)
+
+
 # --------------------------------------------------------------------------
 # the offline-render CLI
 # --------------------------------------------------------------------------

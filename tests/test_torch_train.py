@@ -87,13 +87,19 @@ def _params(rng, n=64):
 
 
 def test_adam_matches_optax_and_carries_state_over():
+    """The port's Adam applies optax's update in optax's float32 order
+    (bias corrections ``1 - b**count`` in float32, ``(mu / bc1) / (sqrt(nu /
+    bc2) + eps)``, then ``* lr``): parameters and moments equal gsjax's bit
+    for bit after every step, also after a mid-training state is carried
+    over and after Adam's count is set apart from the lr count (as a
+    reference checkpoint's is)."""
     from gsjax.train import optim as jo
     from gsjax_torch.train import optim as to
 
     rng = np.random.default_rng(0)
     p0 = {k: v.astype(np.float32) for k, v in _params(rng).items()}
     grads = [{k: rng.normal(0, 1e-3, v.shape).astype(np.float32) for k, v in p0.items()}
-             for _ in range(5)]
+             for _ in range(6)]
     grads[2]["opacity"][:] = 0.0  # a zero gradient still decays the moments
 
     jtx = jo.make_optimizer(JOpt(), 3.0)
@@ -111,12 +117,8 @@ def test_adam_matches_optax_and_carries_state_over():
         opt.step()
         assert opt.count == i + 1
         for k in p0:
-            # optax takes the bias correction 1 - 0.999^t in float32 (1.3e-5
-            # relative error at t = 1), torch in double: the updates differ
-            # by up to ~7e-6 of an lr-sized step (lr <= 0.05), and the
-            # differences add up over the 5 steps
-            np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
-                                       rtol=1e-6, atol=2.5e-6, err_msg=f"step {i} {k}")
+            np.testing.assert_array_equal(tp[k].detach().numpy(), np.asarray(jp[k]),
+                                          err_msg=f"step {i} {k}")
         if i == 2:  # carry the mid-training state over into a fresh optimizer
             mu, nu = jo.adam_moments(jstate)
             tp = {k: _t(np.asarray(v)) for k, v in jp.items()}
@@ -129,20 +131,23 @@ def test_adam_matches_optax_and_carries_state_over():
             for k in p0:
                 np.testing.assert_array_equal(back_mu[k], np.asarray(mu[k]))
                 np.testing.assert_array_equal(back_nu[k], np.asarray(nu[k]))
+        if i == 3:  # Adam's own count set apart from the lr count
+            jstate = (jstate[0]._replace(count=jnp.int32(17)),) + tuple(jstate[1:])
+            opt = to.with_adam_moments(opt, *to.adam_moments(opt), count=17)
+            assert to.adam_count(opt) == 17 and opt.count == 4
+    assert to.adam_count(opt) == int(jstate[0].count) == 19
     tmu, tnu = to.adam_moments(opt)
     jmu, jnu = jo.adam_moments(jstate)
     for k in p0:
-        # sums of gradients of either sign: the last-ulp differences of
-        # lerp and multiply-add stand out where they cancel
-        np.testing.assert_allclose(tmu[k].numpy(), np.asarray(jmu[k]), rtol=1e-5, atol=1e-10)
-        np.testing.assert_allclose(tnu[k].numpy(), np.asarray(jnu[k]), rtol=1e-5, atol=1e-13)
+        np.testing.assert_array_equal(tmu[k].numpy(), np.asarray(jmu[k]))
+        np.testing.assert_array_equal(tnu[k].numpy(), np.asarray(jnu[k]))
     # the lr each group used at the last step
     lrs = {g["name"]: g["lr"] for g in opt.param_groups}
     assert lrs["features_rest"] == pytest.approx(JOpt().feature_lr / 20)
     o = JOpt()
     want = jo.expon_lr_schedule(o.position_lr_init * 3.0, o.position_lr_final * 3.0,
                                 lr_delay_mult=o.position_lr_delay_mult,
-                                max_steps=o.position_lr_max_steps)(5)
+                                max_steps=o.position_lr_max_steps)(6)
     assert lrs["xyz"] == pytest.approx(float(want), rel=2.4e-7)
 
 
@@ -175,6 +180,9 @@ def test_create_from_pcd_and_grow_match_gsjax():
     d = knn_mean_sq_dist(pts)
     brute = np.sort(((pts[:, None] - pts[None]) ** 2).sum(-1), axis=1)[:, 1:4].mean(1)
     np.testing.assert_allclose(d, brute, rtol=1e-5)
+    # gsjax's native KD-tree, bit for bit (the same tree, heap and float32 sum)
+    from gsjax.native import knn_mean_sq_dist as j_knn
+    np.testing.assert_array_equal(d, j_knn(pts))
     with pytest.raises(ValueError):
         t_create(pts, cols, 1.0, capacity=100, device="cpu")
 
