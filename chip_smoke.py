@@ -129,7 +129,16 @@ Phases, in order; any failure exits nonzero:
     gsjax_torch.multichip_split --ranks 2`` at gsjax's operating point:
     every per-rank count within SPLIT_REL of SPLIT_REF; (14f) the port's
     Adam on the card equal to its run on the CPU, bit for bit;
-14. a ``{"kernels": [...]}`` line (``composite_infer``'s
+14. gsjax's random keys on the card (logged as phase 15): (15a)
+    ``gsjax_torch.utils.prng``'s bits, uniforms and normals for three keys
+    at PRNG_SHAPES (a background, an odd length, bench1080's split noise)
+    on the card against the same draws on the CPU, bits and uniforms bit
+    for bit, normals within NORMAL_ULP (the max printed), then the split
+    noise's and a random background's times; (15b) ``python -m
+    gsjax_torch.train --random_background`` on phase 11's scene for
+    PRNG_RUN_ITERS iterations at the default percent_dense: splits in its
+    densifications, a finite test PSNR, the kernels once per step and view;
+15. a ``{"kernels": [...]}`` line (``composite_infer``'s
     ``launches_serving``: the bridge's and the viewer's launches, and
     ``launches_scaled`` / ``max_abs_err_scaled``: 14b's; rows 1-3's
     ``launches_sharded``: 13a's counted launches over both ranks, and
@@ -269,6 +278,17 @@ DENSIFY_AB_ITERS = 600  # 14d, each arm
 # point (float32 preprocess on another device can flip a borderline tile)
 SPLIT_REL = 1e-4
 SPLIT_REF = os.path.join("evidence", "perf", "multichip_split_r5_g2.json")
+
+# Phase 15. gsjax's random keys (gsjax_torch.utils.prng) drawn on the card
+# against the same draws on the CPU, where tests/test_torch_prng.py holds
+# them to jax.random bit for bit: a background (3,), an odd length and the
+# split noise of bench1080's capacity (n_split, 2^20, 3). Every op of a draw
+# is IEEE-exact (integer ops, float32 add / multiply / divide, a fused
+# multiply-add and a square root rounded once from float64), so the card's
+# normals are held bit for bit too: NORMAL_ULP is 0.
+PRNG_SHAPES = [(3,), (1001,), (2, 1 << 20, 3)]
+NORMAL_ULP = 0
+PRNG_RUN_ITERS = 120  # 15b: the random-background training run
 
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
@@ -2269,6 +2289,114 @@ def phase_adam_card(device):
         raise AssertionError(f"Adam on the card differs from the CPU: {off}")
 
 
+def _ulp_diff(a, b) -> int:
+    """Largest distance of two float32 tensors in units in the last place
+    (their bit patterns as signed integers, sign-magnitude folded)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def phase_prng_draws(device):
+    """15a: the port's ``utils.prng`` draws on the card against the same
+    draws on the CPU (bits and uniforms bit for bit, normals within
+    NORMAL_ULP), then the split noise's and a random background's times.
+    Returns the times."""
+    import torch
+
+    from gsjax_torch.utils import prng
+
+    worst = {"bits": 0, "uniform": 0, "normal": 0}
+    for seed in (0, 1, 2**31 - 1):
+        key = prng.fold_in(prng.split(prng.PRNGKey(seed))[1], 7)
+        for shape in PRNG_SHAPES:
+            for fn in (prng.bits, prng.uniform, prng.normal):
+                got, want = fn(key, shape, device), fn(key, shape, "cpu")
+                if got.device.type != torch.device(device).type:
+                    raise AssertionError(f"prng.{fn.__name__} drew on {got.device}")
+                got = got.cpu()
+                d = (int((got - want).abs().max()) if fn is prng.bits
+                     else _ulp_diff(got, want))
+                worst[fn.__name__] = max(worst[fn.__name__], d)
+    log(f"  15a card against CPU over 3 keys x shapes {PRNG_SHAPES}: bits max |diff| "
+        f"{worst['bits']}, uniforms {worst['uniform']} ulp, normals {worst['normal']} ulp "
+        f"(tolerance {NORMAL_ULP} ulp)")
+    if worst["bits"] or worst["uniform"] or worst["normal"] > NORMAL_ULP:
+        raise AssertionError(f"prng draws on the card differ from the CPU's: {worst}")
+
+    key = prng.PRNGKey(0)
+    noise = PRNG_SHAPES[-1]
+    times = {"split_noise_ms": time_cuda(lambda: prng.normal(key, noise, device), 5),
+             "randn_ms": time_cuda(lambda: torch.randn(noise, device=device), 5),
+             "background_ms": time_cuda(lambda: prng.uniform(key, (3,), device), 50)}
+    # a random background's host side a step: fold_in and the draw's launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(50):
+        prng.uniform(prng.fold_in(key, i), (3,), device)
+    times["background_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1000):
+        prng.split(prng.fold_in(key, i))
+    times["split_fold_in_host_us"] = (time.perf_counter() - t0) * 1e3
+    log(f"  15a split noise {noise} {times['split_noise_ms']:.3f} ms (torch.randn "
+        f"{times['randn_ms']:.3f}); a random background {times['background_ms']:.4f} ms a "
+        f"draw by CUDA events over back-to-back draws, {times['background_host_ms']:.4f} ms "
+        f"of host with its fold_in; a key split + fold_in {times['split_fold_in_host_us']:.2f} "
+        f"us of host")
+    return times
+
+
+def phase_prng_run(device, run, workdir, iterations=PRNG_RUN_ITERS):
+    """15b: ``python -m gsjax_torch.train --random_background`` on phase
+    11's scene at the default percent_dense: it splits (the noise and every
+    step's background from gsjax's keys), launches the training kernels
+    once a step and ``composite_infer`` once an evaluated view, and ends
+    with a finite test PSNR. Returns its summary."""
+    every = iterations // 4
+    done, records = _train_run("15b", run["scene"], os.path.join(workdir, "random_bg"), device, [
+        "--iterations", str(iterations), "--random_background",
+        "--densify_from_iter", str(every), "--densification_interval", str(every),
+        "--densify_until_iter", str(iterations - every // 2),
+        "--test_iterations", str(iterations), "--capacity", str(run["capacity"])])
+    dens = [r for r in records if r.get("event") == "densify"]
+    evals = [r["eval"] for r in records if "eval" in r]
+    n_eval = sum(e[s]["n_views"] for e in evals for s in ("test", "train"))
+    want = {"composite_fwd": iterations, "composite_bwd": iterations, "composite_infer": n_eval}
+    psnr = evals[-1]["test"]["psnr"] if evals else float("nan")
+    progress = [r for r in records if "it_per_s" in r]
+    log(f"  15b densify events {[(r['iter'], r['cloned'], r['split'], r['num_active']) for r in dens]} "
+        f"(iteration, cloned, split, active); test PSNR {psnr}; it/s "
+        f"{[round(r['it_per_s'], 2) for r in progress]}; wall {done['wall_s']:.1f} s; launches "
+        f"{done['launches']} (want {want})")
+    checks = {
+        "densify events with splits": bool(dens) and sum(r["split"] for r in dens) > 0,
+        "a finite test PSNR": bool(evals) and np.isfinite(psnr),
+        "launches: fwd and bwd once per step, infer once per eval view":
+            device != "cuda" or done["launches"] == want,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"random-background run: {failed}")
+    return {"psnr": psnr, "densify": {r["iter"]: (r["split"], r["num_active"]) for r in dens},
+            "wall_s": done["wall_s"]}
+
+
+def phase_prng(device, run, workdir):
+    """Phase 15 (see the module docstring)."""
+    t0 = time.perf_counter()
+    log("phase 15: gsjax's random keys on the card")
+    times = phase_prng_draws(device)
+    summary = phase_prng_run(device, run, workdir)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return {**times, **summary}
+
+
 def phase_last_modules(device, run, workdir):
     """Phase 14 (see the module docstring). Returns composite_infer's
     launches and error on the scaled model, and the A/B arms' launches."""
@@ -2356,6 +2484,7 @@ def main() -> int:
         entries[0]["launches_serving"] = phase_serving(device, run["model"], 600, settings)
         sharded = phase_sharded(device, run, tmp)
         last = phase_last_modules(device, run, tmp)
+        phase_prng(device, run, tmp)
     for e in entries[:3]:  # the compositing kernels in 13a: launches, error on a strip
         e["launches_sharded"], e["max_abs_err_sharded"] = sharded[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"], e["max_abs_err_sharded"])

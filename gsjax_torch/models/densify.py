@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gsjax_torch.models.gaussians import GaussianState, Params
+from gsjax_torch.utils import prng
 from gsjax_torch.utils.math import inverse_sigmoid, quat_to_rotmat
 
 
@@ -108,7 +109,7 @@ def densify_and_prune(
     state: GaussianState,
     mu: Params,
     nu: Params,
-    key: Optional[torch.Generator],
+    key,
     extent: float,
     cfg: DensifyConfig = DensifyConfig(),
     use_screen_size: bool = False,
@@ -128,8 +129,10 @@ def densify_and_prune(
     Prune is evaluated for new points too (with screen radius 0), as the
     reference prunes after it densifies.
 
-    The split noise ``eps`` (n_split, C, 3) is drawn from the generator
-    ``key`` on the state's device unless it is given."""
+    The split noise ``eps`` (n_split, C, 3) is gsjax's draw,
+    ``normal(key, (n_split, C, 3))`` over the whole capacity with the
+    ``utils.prng`` key ``key``, made on the state's device, unless it is
+    given."""
     p = state.params
     active = state.active
     c = state.capacity
@@ -189,8 +192,7 @@ def densify_and_prune(
     # (reference gaussian_model.py:358-362)
     R = quat_to_rotmat(p["rotation"])
     if eps is None:
-        eps = torch.randn((cfg.n_split, c, 3), generator=key,
-                          device=key.device if key is not None else dev).to(dev)
+        eps = prng.normal(key, (cfg.n_split, c, 3), dev)
     child_xyz = [p["xyz"] + torch.einsum("nij,nj->ni", R, eps[k] * scales)
                  for k in range(cfg.n_split)]
     child_scaling = torch.log(torch.clamp_min(child_scales, 1e-30))

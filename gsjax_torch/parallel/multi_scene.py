@@ -11,8 +11,8 @@ the ranks of one scene's group compute the same thing (gsjax's replicated
 gsjax stacks the scenes along a leading axis and steps them in one
 program; with one process per rank a rank holds only its scene, so the
 step functions here take and return that scene's state, and pick its
-entry of the scene-indexed arguments (``cam_idx (S,)``, one key per
-scene).
+entry of the scene-indexed arguments (``cam_idx (S,)``, and ``keys`` (S, 2),
+one ``utils.prng`` key per scene).
 """
 
 from __future__ import annotations
@@ -82,8 +82,8 @@ def make_multi_scene_train_step(tx, cameras, images, cfg: TrainConfig, mesh: Sce
 
     ``step(state, opt_state, cam_idx (S,), keys) -> (state, opt_state,
     metrics)``: ``cameras`` and ``images`` are this scene's; the step takes
-    ``cam_idx[scene]`` and ``keys[scene]`` (a ``torch.Generator`` per scene,
-    or None)."""
+    ``cam_idx[scene]`` and ``keys[scene]`` (``keys`` (S, 2), one key per
+    scene, or None)."""
     step = make_train_step(tx, cameras, images, cfg)
 
     def scene_step(state, opt_state, cam_idx, keys=None):
@@ -97,7 +97,8 @@ def make_multi_scene_train_step_chained(tx, cameras, images, cfg: TrainConfig,
                                         mesh: SceneMesh, n_steps: int):
     """``n_steps`` train steps of this rank's scene in one call:
     ``step(state, opt_state, cam_idxs (S, n_steps), keys) -> (state,
-    opt_state, last-step metrics + "loss_mean")``."""
+    opt_state, last-step metrics + "loss_mean")``, step ``i`` on the key
+    ``fold_in(keys[scene], i)`` as in gsjax's scan."""
     chained = make_train_step_chained(tx, cameras, images, cfg, n_steps)
 
     def scene_chained(state, opt_state, cam_idxs, keys=None):
@@ -112,7 +113,7 @@ def make_multi_scene_densify_step(opt_params, cfg: TrainConfig, mesh: SceneMesh)
     single-scene ``make_densify_step``:
 
     ``densify_step(state, opt_state, keys, use_screen_size) -> (state,
-    opt_state, stats)`` with ``keys[scene]`` the split noise's generator,
+    opt_state, stats)`` with ``keys[scene]`` the split noise's key,
     and ``reset(state, opt_state) -> (state, opt_state)``."""
     densify, reset = make_densify_step(opt_params, cfg)
 

@@ -55,6 +55,7 @@ from gsjax_torch.parallel.multihost import host_local_to_global
 from gsjax_torch.train.loss import _depthwise_filter, ssim_map
 from gsjax_torch.train.optim import adam_count, adam_moments, with_adam_moments
 from gsjax_torch.train.step import TrainConfig, _bg_and_images
+from gsjax_torch.utils import prng
 
 HALO = 5  # rows of the 11x11 SSIM window beyond a strip's edge
 S_MAX = 4  # destination strips a splat may reach through the a2a exchange
@@ -423,7 +424,9 @@ def make_sharded_train_step(tx, mesh: Mesh, cameras, images, cfg: TrainConfig):
     ``step(state_shard, opt_state, cam_idx (data,), key=None) ->
     (state_shard, opt_state, metrics)``, the metrics 0-d tensors, the same
     on every rank. Each ``data`` row trains on its own camera
-    ``cam_idx[d]``; Gaussians and tile strips shard over ``gauss``.
+    ``cam_idx[d]``; Gaussians and tile strips shard over ``gauss``. With
+    ``random_background``, row ``d``'s background is gsjax's
+    ``uniform(split(key, data)[d], (3,))``.
     ``cameras`` and ``images`` (every view) are on every rank;
     ``opt_state`` is ``tx.init`` over the shard's parameters."""
     width, height = cameras[0].width, cameras[0].height
@@ -451,9 +454,8 @@ def make_sharded_train_step(tx, mesh: Mesh, cameras, images, cfg: TrainConfig):
             gt = gt.to(torch.float32) / 255.0
         if cfg.random_background:
             if key is None:
-                raise ValueError("random_background needs a torch.Generator key")
-            # every rank draws one color per data row (the generators stay in step)
-            bg = torch.rand((D, 3), generator=key, device=key.device)[mesh.d].to(dev)
+                raise ValueError("random_background needs a key")
+            bg = prng.uniform(prng.split(key, D)[mesh.d], (3,), dev)
         else:
             bg = bg_color
         gt_strip = torch.zeros((strip_px, width, 3), dtype=torch.float32, device=dev)
@@ -531,13 +533,15 @@ def make_sharded_train_step_chained(tx, mesh: Mesh, cameras, images, cfg: TrainC
 
     ``step(state_shard, opt_state, cam_idxs (n_steps, data), key=None) ->
     (state_shard, opt_state, last-step metrics + "loss_mean")``, the
-    counters reduced over the steps as gsjax does."""
+    counters reduced over the steps as gsjax does; step ``i`` takes the key
+    ``fold_in(key, i)``."""
     impl = make_sharded_train_step(tx, mesh, cameras, images, cfg)
 
     def chained(state, opt_state, cam_idxs, key=None):
         ms = []
         for i in range(n_steps):
-            state, opt_state, m = impl(state, opt_state, cam_idxs[i], key)
+            k = None if key is None else prng.fold_in(key, i)
+            state, opt_state, m = impl(state, opt_state, cam_idxs[i], k)
             ms.append(m)
         stacked = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
         metrics = {k: v[-1] for k, v in stacked.items()}

@@ -10,7 +10,9 @@ fixed-capacity buffers re-bucketed 2x when densification fills them, and
 the overflow reactions that grow a rasterizer budget whenever a step drops
 pairs. Event-free iteration ranges run ``steps_per_dispatch`` steps per
 dispatch (``make_train_step_chained``), and the step's metrics are read
-from the device once per dispatch.
+from the device once per dispatch. The random keys are gsjax's
+(``utils.prng``): ``PRNGKey(seed)``, split once a dispatch for the step and
+once a densification for the split noise.
 
 gsjax's compile machinery has no counterpart here and is left out, with
 nothing in its place: the background compile of the next capacity bucket
@@ -25,7 +27,7 @@ block of Gaussian rows, one camera per ``data`` row per step. Every rank
 takes the same decisions (camera draws, budget reactions, densification),
 so the collectives stay in step. Densification and capacity growth run on
 the whole state: each rank gathers the state and Adam's moments over
-``gauss``, runs :func:`make_densify_step` with the same generator, and keeps
+``gauss``, runs :func:`make_densify_step` with the same key, and keeps
 its own rows. Logging, evaluation and checkpoints come from the main rank,
 on the gathered state.
 
@@ -75,6 +77,7 @@ from gsjax_torch.train.step import (
 )
 from gsjax_torch.parallel import comm
 from gsjax_torch.parallel.multihost import is_main_process, process_count
+from gsjax_torch.utils import prng
 from gsjax_torch.utils.system import resolve_device
 
 GROW_WATERMARK = 0.9  # grow capacity when the active fraction exceeds this
@@ -500,7 +503,7 @@ def training(
             viewpoint_stack.extend(range(len(train_cams)))
         return viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
 
-    key = torch.Generator(device=dev).manual_seed(seed)
+    key = prng.PRNGKey(seed)
     viewpoint_stack: List[int] = []
     ema_loss = 0.0
     t_start = time.time()
@@ -530,6 +533,7 @@ def training(
                 state, active_sh_degree=min(state.active_sh_degree + 1, state.max_sh_degree))
 
         k_len = chain_len(iteration) if gui_callback is None else 1
+        key, k = prng.split(key)
         t0 = time.time()
         if chained is not None and k_len == n_chain:
             if mesh is not None:  # one camera per data row
@@ -537,13 +541,13 @@ def training(
                             for _ in range(n_chain)]
             else:
                 cam_idxs = [bucket_of[pop_camera()][1] for _ in range(n_chain)]
-            state, opt_state, metrics = chained(state, opt_state, cam_idxs, key)
+            state, opt_state, metrics = chained(state, opt_state, cam_idxs, k)
             metrics = _read_metrics(metrics)
             loss = metrics["loss_mean"]
             n_stepped = n_chain
         elif mesh is not None:
             cam_idx = [bucket_of[pop_camera()][1] for _ in range(data_shards)]
-            state, opt_state, metrics = step(state, opt_state, cam_idx, key)
+            state, opt_state, metrics = step(state, opt_state, cam_idx, k)
             metrics = _read_metrics(metrics)
             loss = metrics["loss"]
             n_stepped = 1
@@ -553,7 +557,7 @@ def training(
             # reference-exact: densify iterations render and collect stats
             # but drop the Adam update (train.py:118-128)
             apply = not is_densify_iter(iteration) if discard_densify_grad else None
-            state, opt_state, metrics = fn(state, opt_state, cam_idx, key, apply)
+            state, opt_state, metrics = fn(state, opt_state, cam_idx, k, apply)
             metrics = _read_metrics(metrics)
             loss = metrics["loss"]
             n_stepped = 1
@@ -741,12 +745,13 @@ def training(
         # densification (reference train.py:112-123)
         if iteration < opt.densify_until_iter:
             if iteration > opt.densify_from_iter and iteration % opt.densification_interval == 0:
+                key, k = prng.split(key)
                 use_screen = iteration > opt.opacity_reset_interval
                 if mesh is not None:
                     # every rank densifies the gathered state alike (the
-                    # same generator draws the same split noise)
+                    # same key draws the same split noise)
                     state, opt_state = to_whole(state, opt_state)
-                state, opt_state, dstats = densify_step(state, opt_state, key,
+                state, opt_state, dstats = densify_step(state, opt_state, k,
                                                         use_screen_size=use_screen)
                 d = _read_metrics({**dstats._asdict(), "num_active": state.num_active})
                 n_act = d["num_active"]

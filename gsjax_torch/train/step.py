@@ -38,6 +38,7 @@ from gsjax_torch.models.gaussians import GaussianState, activated
 from gsjax_torch.ops.rasterize import RasterizeSettings, render
 from gsjax_torch.train.loss import l1_loss, ssim
 from gsjax_torch.train.optim import adam_moments, with_adam_moments
+from gsjax_torch.utils import prng
 from gsjax_torch.utils.math import build_covariance, safe_normalize, strip_symmetric
 from gsjax_torch.utils.sh import eval_sh
 
@@ -151,7 +152,8 @@ def _train_step_body(tx, cameras, images, cfg: TrainConfig, bg_color,
                      apply_update=None):
     """One iteration. ``opt_state`` is the optimizer ``tx.init`` made over
     ``state.params``; it updates them in place. ``key`` is a
-    ``torch.Generator`` (needed only with ``random_background``). Returns
+    ``utils.prng`` key (needed only with ``random_background``: the
+    background is ``uniform(key, (3,))``, gsjax's draw). Returns
     ``(state, opt_state, metrics)``; the metrics are 0-d device tensors."""
     if opt_state.lr_fns is not tx.lr_fns:
         raise ValueError("opt_state was not made by this step's optimizer")
@@ -166,8 +168,8 @@ def _train_step_body(tx, cameras, images, cfg: TrainConfig, bg_color,
         gt = gt.to(torch.float32) / 255.0
     if cfg.random_background:
         if key is None:
-            raise ValueError("random_background needs a torch.Generator key")
-        bg = torch.rand(3, generator=key, device=key.device).to(dev)
+            raise ValueError("random_background needs a key")
+        bg = prng.uniform(key, (3,), dev)
     else:
         bg = bg_color
     offset = torch.zeros((state.capacity, 2), dtype=torch.float32, device=dev,
@@ -246,14 +248,16 @@ def make_train_step_chained(tx, cameras, images, cfg: TrainConfig, n_steps: int)
 
     ``chained(state, opt_state, cam_idxs (n_steps,), key=None) ->
     (state, opt_state, metrics of the last step + "loss_mean")``, the
-    counters reduced over the steps exactly as gsjax does."""
+    counters reduced over the steps exactly as gsjax does; step ``i``
+    takes the key ``fold_in(key, i)``, as gsjax's scan."""
     bg_color, images = _bg_and_images(cameras, images, cfg)
 
     def chained(state, opt_state, cam_idxs, key=None):
         ms = []
         for i in range(n_steps):
+            k = None if key is None else prng.fold_in(key, i)
             state, opt_state, m = _train_step_body(
-                tx, cameras, images, cfg, bg_color, state, opt_state, cam_idxs[i], key)
+                tx, cameras, images, cfg, bg_color, state, opt_state, cam_idxs[i], k)
             ms.append(m)
         stacked = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
         metrics = {k: v[-1] for k, v in stacked.items()}
@@ -290,8 +294,8 @@ def make_densify_step(opt, cfg: TrainConfig):
 
     ``densify_step(state, opt_state, key, use_screen_size, eps=None) ->
     (state, opt_state, stats)`` and ``opacity_reset_step(state, opt_state)
-    -> (state, opt_state)``. ``key`` is a ``torch.Generator`` for the split
-    noise (or ``eps``, see ``models.densify.densify_and_prune``). The
+    -> (state, opt_state)``. ``key`` is the split noise's ``utils.prng``
+    key (or ``eps``, see ``models.densify.densify_and_prune``). The
     parameters are written in place, the moments are zeroed at every
     written slot, and the optimizer's counts stay."""
     dcfg = DensifyConfig(

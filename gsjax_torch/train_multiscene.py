@@ -18,10 +18,11 @@ The flags are the root script's plus ``--device`` (default ``cuda``). As
 there, the scenes share one resolution, the densify thresholds use the
 largest scene extent, and the capacity is fixed (densification drops what
 does not fit), and the scenes draw their cameras in turn from one numpy
-generator seeded by ``--seed`` (:func:`sample_camera_indices`). Unlike
-there, the random backgrounds and the densification noise come from torch
-generators, which cannot draw what gsjax's JAX keys draw; every scene's
-densification noise is alike (gsjax folds the scene into its key). The last line of each
+generator seeded by ``--seed`` (:func:`sample_camera_indices`). The random
+keys are gsjax's (``utils.prng``, :func:`dispatch_keys`,
+:func:`densify_keys`): a dispatch at iteration ``it`` gives every scene
+``fold_in(PRNGKey(seed), it)``, and a densification there gives scene
+``s`` ``fold_in(fold_in(PRNGKey(seed), it), s)``. The last line of each
 rank's output is one JSON object: its scene, the per-scene losses of the
 last dispatch, the wall time and the compositing kernels' launch counts.
 """
@@ -35,6 +36,8 @@ import sys
 import time
 
 import numpy as np
+
+from gsjax_torch.utils import prng
 
 
 def build_parser():
@@ -67,13 +70,18 @@ def sample_camera_indices(rng, cam_counts, n: int) -> np.ndarray:
     return np.stack([rng.integers(0, cam_counts[s], size=n) for s in range(len(cam_counts))])
 
 
-def _densify_key(seed: int, it: int, device):
-    """The split noise's generator of a densification at ``it`` (gsjax
-    folds the iteration and the scene into its key; here every scene draws
-    alike)."""
-    import torch
+def dispatch_keys(key, it: int, n_scenes: int) -> np.ndarray:
+    """(S, 2) keys of the dispatch that starts after iteration ``it``: the
+    same ``fold_in(key, it)`` for every scene (gsjax's
+    ``train_multiscene.py:251-256``)."""
+    return np.stack([prng.fold_in(key, it)] * n_scenes)
 
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + it)
+
+def densify_keys(key, it: int, n_scenes: int) -> np.ndarray:
+    """(S, 2) split-noise keys of the densification at ``it``: scene ``s``
+    takes ``fold_in(fold_in(key, it), s)`` (gsjax's
+    ``train_multiscene.py:271-272``)."""
+    return np.stack([prng.fold_in(prng.fold_in(key, it), s) for s in range(n_scenes)])
 
 
 def main(argv=None):
@@ -186,11 +194,9 @@ def main(argv=None):
     densify_step, reset_step = make_multi_scene_densify_step(opt, cfg, mesh)
 
     # camera sampling: every rank draws the same (S, n) indices from one
-    # generator, the scenes in turn, as gsjax does; each scene's random
-    # backgrounds come from a generator of its own (a torch generator cannot
-    # draw what gsjax's jax.random.fold_in(key, it) keys draw)
+    # generator, the scenes in turn, as gsjax does
     rng = np.random.default_rng(args.seed)
-    keys = [torch.Generator(device=dev).manual_seed(args.seed) for _ in range(n_scenes)]
+    key = prng.PRNGKey(args.seed)
 
     def sample_idx(n):
         return sample_camera_indices(rng, cam_counts, n)
@@ -210,7 +216,8 @@ def main(argv=None):
     for ev in events:
         while it < ev:
             n = min(n_chain, ev - it)
-            state, opt_state, metrics = step_of(n)(state, opt_state, sample_idx(n), keys)
+            state, opt_state, metrics = step_of(n)(state, opt_state, sample_idx(n),
+                                                   dispatch_keys(key, it, n_scenes))
             it += n
         losses = scene_values(metrics["loss_mean"], mesh)
         rate = it / max(time.time() - t0, 1e-9)
@@ -220,8 +227,7 @@ def main(argv=None):
         in_densify = (opt.densify_from_iter < it < opt.densify_until_iter
                       and it % opt.densification_interval == 0)
         if in_densify:
-            dkeys = [_densify_key(args.seed, it, dev)] * n_scenes
-            state, opt_state, _ = densify_step(state, opt_state, dkeys,
+            state, opt_state, _ = densify_step(state, opt_state, densify_keys(key, it, n_scenes),
                                                it > opt.opacity_reset_interval)
         if it % opt.opacity_reset_interval == 0 and it < args.iterations:
             state, opt_state = reset_step(state, opt_state)

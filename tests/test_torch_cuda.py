@@ -19,6 +19,7 @@ from gsjax_torch.ops import cuda_composite as cc
 from gsjax_torch.ops import cuda_probe as cp
 from gsjax_torch.ops.binning import build_tile_bins
 from gsjax_torch.ops.projection import num_tiles, preprocess
+from gsjax_torch.utils import prng
 
 
 def _cuda():
@@ -577,7 +578,7 @@ def test_densify_on_the_card_matches_the_plain_cpu_result():
     s = state(dev)
     opt = make_optimizer(OptimizationParams(), 1.0).init(s.params)
     densify, reset = make_densify_step(OptimizationParams(), TrainConfig(extent=3.0))
-    s, opt, st = densify(s, opt, torch.Generator(device=dev).manual_seed(0), True)
+    s, opt, st = densify(s, opt, prng.PRNGKey(0), True)
     s, opt = reset(s, opt)
     assert all(opt.param(k) is s.params[k] for k in s.params)
     for v in s.params.values():
@@ -643,3 +644,21 @@ def _strip_against_frame(dev, dense):
     assert float(whole[2].abs().max()) > 0
     for name, got, want in zip(("means2d", "conics", "colors", "opacities"), part, whole):
         assert_norm_tiers(got, want, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3,), (1001,), (2, 4099, 3)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_prng_draws_on_the_card_equal_the_cpus(shape):
+    """gsjax's random keys (``utils.prng``) draw the same bits on the card
+    as on the CPU, where tests/test_torch_prng.py holds them to
+    ``jax.random``: bits, uniforms and normals bit for bit."""
+    dev = _cuda()
+    for seed in (0, 1, 2**31 - 1):
+        key = prng.fold_in(prng.split(prng.PRNGKey(seed))[1], 7)
+        for fn in (prng.bits, prng.uniform, prng.normal):
+            got, want = fn(key, shape, dev), fn(key, shape, "cpu")
+            assert got.device.type == "cuda"
+            if got.dtype == torch.float32:
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            assert torch.equal(got.cpu(), want), (fn.__name__, seed)

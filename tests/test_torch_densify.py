@@ -1,5 +1,6 @@
 """gsjax_torch's density control against gsjax, on the CPU: clone / split /
-prune slot for slot (gsjax's split noise injected), the capacity-exhausted
+prune slot for slot (gsjax's split noise injected, and drawn by the port
+from gsjax's key), the capacity-exhausted
 case, the opacity reset, the densify step's edits of the optimizer, and the
 stacking of GT images with alpha masks. Same numpy inputs from seeds on
 both sides."""
@@ -14,6 +15,7 @@ import torch
 
 from gsjax.configs import OptimizationParams as JOpt
 from gsjax_torch.configs import OptimizationParams as TOpt
+from gsjax_torch.utils import prng
 from test_torch_render import _carry
 
 @pytest.fixture(autouse=True, scope="module")
@@ -161,6 +163,41 @@ def test_densify_and_prune_matches_gsjax(use_screen_size, n, capacity):
         assert int(tstats.num_dropped) == 0
 
 
+@pytest.mark.parametrize("use_screen_size", [False, True], ids=["world", "screen"])
+@pytest.mark.parametrize("seed", [5, 2**31 - 1])
+def test_densify_draws_gsjax_split_noise(seed, use_screen_size):
+    """No noise injected: the port draws the split noise from the same key
+    (``utils.prng``) as gsjax's ``jax.random.normal(key, (n_split, C, 3))``,
+    so the children sit where gsjax's do, within the injected test's
+    tolerance; the draw itself is gsjax's bit for bit."""
+    from gsjax.models.densify import DensifyConfig as JCfg
+    from gsjax.models.densify import densify_and_prune as j_densify
+    from gsjax_torch.models.densify import DensifyConfig, densify_and_prune
+
+    extent, n, capacity = 8.0, 300, 1024
+    jstate = _dense_state(n, capacity, seed=11)
+    mu, nu = _moments(jstate, 12)
+    cfg = JCfg()
+    jnew, _, _, jstats = j_densify(
+        jstate, {k: jnp.asarray(v) for k, v in mu.items()},
+        {k: jnp.asarray(v) for k, v in nu.items()}, jax.random.PRNGKey(seed), extent, cfg,
+        use_screen_size=use_screen_size)
+    key = prng.PRNGKey(seed)
+    tnew, _, _, tstats = densify_and_prune(
+        _carry_stats(jstate), {k: torch.from_numpy(v) for k, v in mu.items()},
+        {k: torch.from_numpy(v) for k, v in nu.items()}, key, extent, DensifyConfig(),
+        use_screen_size=use_screen_size)
+
+    shape = (cfg.n_split, capacity, 3)
+    np.testing.assert_array_equal(
+        prng.normal(key, shape, "cpu").numpy().view(np.uint32),
+        np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape)).view(np.uint32))
+    for name in STAT_NAMES:
+        assert int(getattr(tstats, name)) == int(getattr(jstats, name)), name
+    assert int(tstats.num_split) > 0
+    _assert_state_equal(tnew, jnew, xyz_atol=2e-6)
+
+
 def test_reset_opacity_matches_gsjax():
     from gsjax.models.densify import reset_opacity as j_reset
     from gsjax_torch.models.densify import reset_opacity
@@ -211,7 +248,7 @@ def test_densify_step_edits_the_bound_optimizer_like_gsjax():
     opt = opt_state_from_numpy(mu, nu, 7, make_optimizer(TOpt(), 1.0).init(tstate.params))
     bound = {k: opt.param(k) for k in tstate.params}
     td, tr = make_densify_step(TOpt(), TrainConfig(extent=extent))
-    ts, opt, tstats = td(tstate, opt, torch.Generator().manual_seed(0), True)
+    ts, opt, tstats = td(tstate, opt, prng.PRNGKey(0), True)
     ts, opt = tr(ts, opt)
 
     assert int(tstats.num_cloned) > 0 and int(tstats.num_split) == int(jstats.num_split) == 0

@@ -36,7 +36,8 @@ def test_port_imports_without_jax_or_gsjax():
             "gsjax_torch.parallel.shard", "gsjax_torch.parallel.multi_scene",
             "gsjax_torch.train_multiscene", "gsjax_torch.scaling_bench",
             "gsjax_torch.native", "gsjax_torch.scale_model", "gsjax_torch.drop_ab",
-            "gsjax_torch.densify_grad_ab", "gsjax_torch.multichip_split"} <= set(mods)
+            "gsjax_torch.densify_grad_ab", "gsjax_torch.multichip_split",
+            "gsjax_torch.utils.prng"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

@@ -5,9 +5,11 @@ scan backend against gsjax's XLA scan), then a resume from a checkpoint;
 ``input.ply``; and the CLIs' ``main()`` (train, metrics, full_eval).
 
 The fixture scene's GT images come from gsjax's oracle renderer
-(``tests/fixtures.py``). The densification runs clone-only (percent_dense
-1.0), so no split noise is drawn and both sides take the same decisions;
-the budget starts too small, so both react to the same pair overflow."""
+(``tests/fixtures.py``). ``training`` runs twice: clone-only (percent_dense
+1.0), and at the default percent_dense with random backgrounds, where the
+splits draw their noise and every step its background from gsjax's key
+chain (``utils.prng``), so both sides take the same decisions; the budget
+starts too small, so both react to the same pair overflow."""
 
 import json
 import os
@@ -75,7 +77,7 @@ class _Recorder:
                            float(np.abs(np.clip(img, 0, 1) - gt).mean())))
 
 
-def _run_gsjax(src, out, monkeypatch, start=None):
+def _run_gsjax(src, out, monkeypatch, start=None, **opt):
     import jax.numpy as jnp
 
     from gsjax.data.dataset_readers import load_camera_images, load_scene_info
@@ -86,12 +88,13 @@ def _run_gsjax(src, out, monkeypatch, start=None):
     rec = _Recorder(monkeypatch, view,
                     lambda fn, st: np.asarray(fn(st, rc, jnp.zeros(3))))
     scene, state = training(
-        JM(source_path=src, model_path=out, eval=True), JO(**OPT), JP(), settings=JS(**BUDGET), passive_callback=rec, start_checkpoint=start, **RUN)
+        JM(source_path=src, model_path=out, eval=True), JO(**{**OPT, **opt}), JP(),
+        settings=JS(**BUDGET), passive_callback=rec, start_checkpoint=start, **RUN)
     monkeypatch.undo()
     return scene, state, rec
 
 
-def _run_port(src, out, monkeypatch, start=None):
+def _run_port(src, out, monkeypatch, start=None, **opt):
     from gsjax_torch.data.dataset_readers import load_camera_images, load_scene_info
     from gsjax_torch.train.loop import training
 
@@ -100,8 +103,8 @@ def _run_port(src, out, monkeypatch, start=None):
     rec = _Recorder(monkeypatch, view,
                     lambda fn, st: fn(st, rc, torch.zeros(3)).numpy())
     scene, state = training(
-        TM(source_path=src, model_path=out, eval=True), TO(**OPT), TP(), settings=TS(**BUDGET), passive_callback=rec, start_checkpoint=start,
-        device="cpu", **RUN)
+        TM(source_path=src, model_path=out, eval=True), TO(**{**OPT, **opt}), TP(),
+        settings=TS(**BUDGET), passive_callback=rec, start_checkpoint=start, device="cpu", **RUN)
     monkeypatch.undo()
     return scene, state, rec
 
@@ -139,22 +142,36 @@ def _assert_runs_agree(jrun, trun, jdir, tdir):
     return jlog, tlog
 
 
-def test_training_follows_gsjax(scene_dir, tmp_path, monkeypatch):
+# clone-only; and the default percent_dense (splits draw their noise) with
+# a random background every step
+CASES = {"clone_only": {}, "splits_random_background": dict(
+    percent_dense=JO().percent_dense, random_background=True)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_training_follows_gsjax(scene_dir, tmp_path, monkeypatch, case):
+    opt = CASES[case]
     jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
-    jrun = _run_gsjax(scene_dir, jdir, monkeypatch)
-    trun = _run_port(scene_dir, tdir, monkeypatch)
+    jrun = _run_gsjax(scene_dir, jdir, monkeypatch, **opt)
+    trun = _run_port(scene_dir, tdir, monkeypatch, **opt)
     jlog, tlog = _assert_runs_agree(jrun, trun, jdir, tdir)
     # every event of the schedule happened
     dens = _events(tlog, "densify")
     assert [r["iter"] for r in dens] == [10, 20]
-    assert all(r["cloned"] > 0 and r["split"] == 0 for r in dens)
-    assert _events(tlog, "capacity_growth") and _events(tlog, "pair_overflow")
+    assert _events(tlog, "capacity_growth")
+    if opt:
+        assert all(r["split"] > 0 for r in dens)
+    else:
+        assert all(r["cloned"] > 0 and r["split"] == 0 for r in dens)
+        assert _events(tlog, "pair_overflow")
     # the first dispatch, before any event, lowered the loss
     assert trun[2].trace[1][2] < trun[2].trace[0][2]
     # artifacts (reference scene/__init__.py:51-63, train.py:108-132)
     for name in ("cfg_args", "cameras.json", "input.ply", "chkpnt20.npz",
                  os.path.join("point_cloud", f"iteration_{ITERS}", "point_cloud.ply")):
         assert os.path.exists(os.path.join(tdir, name)), name
+    if opt:
+        return
 
     # resume from gsjax's checkpoint at 20 (the port reads gsjax's file):
     # the first dispatch sees the state gsjax's run had at iteration 21,

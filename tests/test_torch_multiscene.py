@@ -50,6 +50,8 @@ def _rank_main(workdir):
     from gsjax_torch.parallel.multihost import maybe_initialize
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_densify_step, make_train_step
+    from gsjax_torch.train_multiscene import densify_keys
+    from gsjax_torch.utils import prng
     from test_torch_parallel import state_from
 
     maybe_initialize(device="cpu")
@@ -86,16 +88,26 @@ def _rank_main(workdir):
                losses=scene_values(m["loss"], mesh))
 
     # the densify step of this scene against make_densify_step on a copy
-    gen = torch.Generator().manual_seed(5)
+    key = prng.PRNGKey(5)
     d_st, d_o, stats = make_multi_scene_densify_step(opt, cfg, mesh)[0](
-        state_from(st), tx.init(state_from(st).params), [gen, gen], False)
+        state_from(st), tx.init(state_from(st).params), np.stack([key, key]), False)
     ref = state_from(st)
-    r_st, _, r_stats = make_densify_step(opt, cfg)[0](ref, tx.init(ref.params),
-                                                      torch.Generator().manual_seed(5), False)
+    r_st, _, r_stats = make_densify_step(opt, cfg)[0](ref, tx.init(ref.params), key, False)
     out.update(d_active=d_st.active.numpy(), ref_active=r_st.active.numpy(),
                d_xyz=d_st.params["xyz"].detach().numpy(),
                ref_xyz=r_st.params["xyz"].detach().numpy(),
                d_cloned=int(stats.num_cloned), ref_cloned=int(r_stats.num_cloned))
+
+    # a densification that splits, on train_multiscene's keys for iteration
+    # 300: its input (this scene's stepped state) and its output
+    split_opt = OptimizationParams(densify_grad_threshold=1e-9, percent_dense=1e-3)
+    s_st, _, s_stats = make_multi_scene_densify_step(split_opt, cfg, mesh)[0](
+        state_from(st), tx.init(state_from(st).params), densify_keys(key, 300, 2), False)
+    out.update(split_in_active=st.active.numpy(), split_in_accum=st.xyz_grad_accum.numpy(),
+               split_in_denom=st.denom.numpy(), split_in_radii=st.max_radii2d.numpy(),
+               split_stats=np.asarray([int(v) for v in s_stats]),
+               split_active=s_st.active.numpy(),
+               **{f"split_p_{k}": v.detach().numpy() for k, v in s_st.params.items()})
 
     # three chained steps against three single steps
     idxs = np.array([[0, 2, 3], [1, 1, 0]])
@@ -203,6 +215,74 @@ def test_multi_scene_densify_step_matches_make_densify_step(ranks):
         assert got["d_cloned"] == got["ref_cloned"]
         np.testing.assert_array_equal(got["d_active"], got["ref_active"])
         np.testing.assert_array_equal(got["d_xyz"], got["ref_xyz"])
+
+
+def test_train_multiscene_keys_match_gsjax():
+    """The dispatch and densification keys of ``train_multiscene``: gsjax's
+    ``train_multiscene.py:251-256`` and ``:271-272`` expressions."""
+    import jax
+    import jax.numpy as jnp
+
+    from gsjax_torch.train_multiscene import densify_keys, dispatch_keys
+    from gsjax_torch.utils import prng
+
+    for seed in (0, 3):
+        key, jkey = prng.PRNGKey(seed), jax.random.PRNGKey(seed)
+        for it in (0, 25, 100, 300, 29_975):
+            np.testing.assert_array_equal(
+                dispatch_keys(key, it, 3), np.asarray(jnp.stack([jax.random.fold_in(jkey, it)] * 3)))
+            np.testing.assert_array_equal(
+                densify_keys(key, it, 3),
+                np.asarray(jnp.stack([jax.random.fold_in(jax.random.fold_in(jkey, it), s)
+                                      for s in range(3)])))
+
+
+def test_multi_scene_split_noise_matches_gsjax(scenes, ranks):
+    """A densification that splits, on ``densify_keys(PRNGKey(5), 300)``,
+    against gsjax's ``make_multi_scene_densify_step`` with the keys its
+    train_multiscene gives iteration 300: every count, the active masks,
+    and the children within the densify test's tolerance
+    (tests/test_torch_densify.py): scene ``s`` draws from its own key,
+    ``fold_in(fold_in(key, 300), s)``."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from gsjax.configs import OptimizationParams
+    from gsjax.ops.rasterize import RasterizeSettings
+    from gsjax.parallel.multi_scene import (
+        make_multi_scene_densify_step,
+        make_scene_mesh,
+        stack_scene_states,
+        unstack_scene_state,
+    )
+    from gsjax.train.optim import make_optimizer
+    from gsjax.train.step import TrainConfig
+
+    states, _, _ = scenes
+    inputs = [dataclasses.replace(
+        s, params={k: jnp.asarray(got[f"p_{k}"]) for k in PARAM_KEYS},
+        active=jnp.asarray(got["split_in_active"]),
+        max_radii2d=jnp.asarray(got["split_in_radii"]),
+        xyz_grad_accum=jnp.asarray(got["split_in_accum"]),
+        denom=jnp.asarray(got["split_in_denom"])) for s, got in zip(states, ranks)]
+    opt = OptimizationParams(densify_grad_threshold=1e-9, percent_dense=1e-3)
+    cfg = TrainConfig(settings=RasterizeSettings(**SETTINGS), extent=EXTENT)
+    tx = make_optimizer(opt, EXTENT)
+    densify, _ = make_multi_scene_densify_step(
+        opt, cfg, make_scene_mesh(2, devices=jax.devices()[:2]))
+    key = jax.random.PRNGKey(5)
+    keys = jnp.stack([jax.random.fold_in(jax.random.fold_in(key, 300), s) for s in range(2)])
+    opt_states = jax.tree.map(lambda *xs: jnp.stack(xs), *[tx.init(s.params) for s in inputs])
+    new, _, stats = densify(stack_scene_states(inputs), opt_states, keys, False)
+    for i, got in enumerate(ranks):
+        want = unstack_scene_state(new, i)
+        assert got["split_stats"].tolist() == [int(np.asarray(v)[i]) for v in stats]
+        assert got["split_stats"][1] > 0  # num_split
+        np.testing.assert_array_equal(got["split_active"], np.asarray(want.active))
+        np.testing.assert_allclose(got["split_p_xyz"], np.asarray(want.params["xyz"]),
+                                   rtol=0, atol=2e-6)
 
 
 def test_multi_scene_chained_step_matches_sequential(ranks):

@@ -102,6 +102,7 @@ def _rank_main(workdir, data, gauss):
     )
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_render_fn, make_train_step
+    from gsjax_torch.utils import prng
 
     maybe_initialize(device="cpu")
     mesh = make_mesh(data=data, gauss=gauss, device="cpu")
@@ -120,10 +121,10 @@ def _rank_main(workdir, data, gauss):
     out["render"] = img.numpy()
     out["render_single"] = make_render_fn(cfg)(state, rcams[1], torch.zeros(3)).numpy()
 
-    def stepped(cfg_, cam_idx):
+    def stepped(cfg_, cam_idx, key=None):
         local, opt = fresh()
         local, opt, m = make_sharded_train_step(tx, mesh, rcams, images, cfg_)(
-            local, opt, cam_idx)
+            local, opt, cam_idx, key)
         return gather_gaussian_state(local, mesh), m
 
     cam_idx = [2] if data == 1 else [0, 3]
@@ -192,6 +193,22 @@ def _rank_main(workdir, data, gauss):
         out.update({f"seq_{k}": v for k, v in _whole(seq).items()})
         out.update({f"chain_{k}": v for k, v in _whole(ch).items()})
         out.update(seq_losses=np.asarray(losses), chain_loss_mean=float(m["loss_mean"]))
+        # random backgrounds: one step (row d draws from split(key, 2)[d]),
+        # and the chained steps against single steps on fold_in(key, i)
+        rb = dataclasses.replace(cfg, random_background=True)
+        whole, m = stepped(rb, [0, 3], prng.PRNGKey(9))
+        out.update({f"rb_{k}": v for k, v in _whole(whole).items()})
+        out.update(rb_loss=float(m["loss"]), rb_l1=float(m["l1"]))
+        local, opt = fresh()
+        step = make_sharded_train_step(tx, mesh, rcams, images, rb)
+        for i, ci in enumerate(idxs):
+            local, opt, _ = step(local, opt, ci, prng.fold_in(prng.PRNGKey(9), i))
+        out.update({f"rb_seq_{k}": v for k, v in _whole(gather_gaussian_state(local, mesh)).items()})
+        local, opt = fresh()
+        local, opt, _ = make_sharded_train_step_chained(tx, mesh, rcams, images, rb, 3)(
+            local, opt, idxs, prng.PRNGKey(9))
+        out.update({f"rb_chain_{k}": v
+                    for k, v in _whole(gather_gaussian_state(local, mesh)).items()})
     if mesh.rank == 0:
         np.savez(os.path.join(workdir, f"out_{data}x{gauss}.npz"), **out)
     torch.distributed.barrier()
@@ -263,7 +280,7 @@ def _j_mesh(shape):
     return make_mesh(data=d, gauss=g, devices=jax.devices()[: d * g])
 
 
-def _j_step(scene, shape, cam_idx, **settings):
+def _j_step(scene, shape, cam_idx, random_background=False, **settings):
     import jax
     import jax.numpy as jnp
 
@@ -277,7 +294,8 @@ def _j_step(scene, shape, cam_idx, **settings):
     state, cams, images = scene
     mesh = _j_mesh(shape)
     tx = make_optimizer(OptimizationParams(), state.spatial_lr_scale)
-    cfg = TrainConfig(settings=RasterizeSettings(**{**SETTINGS, **settings}), extent=2.0)
+    cfg = TrainConfig(settings=RasterizeSettings(**{**SETTINGS, **settings}), extent=2.0,
+                      random_background=random_background)
     sstate = shard_gaussian_state(state, mesh)
     step = make_sharded_train_step(tx, mesh, stack_render_cameras(cams), images, cfg)
     s, _, m = step(sstate, tx.init(sstate.params), jnp.asarray(cam_idx), jax.random.PRNGKey(9))
@@ -328,6 +346,30 @@ def test_sharded_train_step_matches_gsjax(scene, ranks, shape):
     assert got["step_loss"] == pytest.approx(float(m["loss"]), rel=LOSS_RTOL)
     assert got["step_l1"] == pytest.approx(float(m["l1"]), rel=LOSS_RTOL)
     _assert_state(got, "step", s)
+
+
+def test_random_background_rows_match_gsjax(scene, ranks):
+    """Each data row draws its background from gsjax's key,
+    ``uniform(split(key, data)[d], (3,))``: the stepped state equals
+    gsjax's within the step's tolerances, and the loss is not the black
+    background's."""
+    got = ranks[(2, 2)]
+    s, m = _j_step(scene, (2, 2), [0, 3], random_background=True)
+    assert got["rb_loss"] == pytest.approx(float(m["loss"]), rel=LOSS_RTOL)
+    assert got["rb_l1"] == pytest.approx(float(m["l1"]), rel=LOSS_RTOL)
+    assert abs(got["rb_loss"] - got["step_loss"]) > 1e-3
+    _assert_state(got, "rb", s)
+
+
+def test_random_background_chained_steps_fold_the_key(ranks):
+    """The chained sharded step's step i takes ``fold_in(key, i)``, as
+    gsjax's scan: it equals single steps on those keys."""
+    got = ranks[(2, 2)]
+    for k in PARAM_KEYS:
+        np.testing.assert_array_equal(got[f"rb_chain_p_{k}"], got[f"rb_seq_p_{k}"], err_msg=k)
+    np.testing.assert_array_equal(got["rb_chain_denom"], got["rb_seq_denom"])
+    # and the keys mattered: the steps on other keys land elsewhere
+    assert not np.array_equal(got["rb_chain_p_features_dc"], got["seq_p_features_dc"])
 
 
 def test_data_parallel_loss_is_the_mean_of_the_cameras(ranks):
