@@ -19,16 +19,24 @@ Phases, in order; any failure exits nonzero:
    pixel's count of contributing pairs against the plain version's, and
    with the per-warp cull against without it (equal on every pixel, the
    tables bit for bit), and at 1080p the backward's warp-level work
-   (``profiling.bwd_work``);
+   (``profiling.bwd_work``); then the backward at ``grad_dtype``
+   bfloat16 under both roundings (``grad_reduce`` sort: half up, gather:
+   to nearest even): the kernel's packed (P, 5) table bit for bit
+   ``pack_bf16_pairs`` of its own float32 table, within the gradient tiers
+   of the plain version after unpacking (per pair and per gaussian), two
+   runs bit-identical, and the check instances' tables the training
+   instance's;
 4. the render path: the 1M-gaussian 1080p scene rendered through
    ``make_render_fn`` for 40 frames from 4 camera poses, launch counts
    reset just before and read just after; then per-phase and per-kernel
    times with CUDA events;
-5. the training path: 24 steps of ``make_train_step`` on the same scene at
+5. the training path: 48 steps of ``make_train_step`` on the same scene at
    full width (targets: the scene with its base color shifted, rendered
-   from the 4 poses), launch counts reset just before and read just after;
-   step times and one step's per-phase times with CUDA events;
-   then ``profiling.trace`` (``torch.profiler``) around 4 more steps: the
+   from the 4 poses), in turns at ``grad_dtype`` float32 and bfloat16
+   (gsjax's bench and training default), launch counts reset just before
+   and read just after; each one's step times and per-phase times (its
+   backward kernel and reduction among them) with CUDA events; then
+   ``profiling.trace`` (``torch.profiler``) around 4 more float32 steps: the
    top kernels by device time and the device's busy share of the window;
 6. one train step through the kernel backend against one through the
    differentiable scan backend on a 20,000-gaussian 256x256 scene;
@@ -63,7 +71,9 @@ Phases, in order; any failure exits nonzero:
     run exits 0, the log shows clones, splits, a capacity growth and the
     reset (the checkpoint's opacities), the test PSNR at 600 beats 300's,
     the last logged step dropped no pair, ``composite_fwd`` and
-    ``composite_bwd`` launched once per step and ``composite_infer`` once
+    ``composite_bwd`` launched once per step — the backward's bf16
+    instance each time, since the trainer's settings ask for
+    ``grad_dtype="bfloat16"`` as gsjax's — and ``composite_infer`` once
     per evaluated view (each run's counts are reset at its start and
     printed on its last line). It prints it/s, the wall time, the growth
     pause and the peak memory. Its runs pass ``--disable_viewer``;
@@ -182,6 +192,14 @@ P999_TOL = 5e-4
 # (tightened from 2e-2 / 1e-3).
 GRAD_MAX_TOL = 1e-3
 GRAD_P999_TOL = 1e-5
+# The backward at grad_dtype bfloat16: the kernel and the plain version
+# each round their own float32 value, and where the two straddle a bf16
+# rounding boundary they come out one unit (2^-8 to 2^-7 of the value)
+# apart: measured on an NVIDIA H100 80GB HBM3 (700 W) at the bench frame,
+# a pair's r gradient 1.37e-3 of its column's max. So the bf16 tables are
+# held to the tiers above on what is left after one rounding unit a pair
+# value (compare_bf16_grads), and bit for bit to the kernel's own float32
+# table packed.
 # One Adam step moves a parameter by about its lr whatever the gradient's
 # size (a gradient near zero can flip sign between two backends and move it
 # by 2 lr), so the kernel and scan backends' updates are held to the bulk:
@@ -292,7 +310,7 @@ PRNG_RUN_ITERS = 120  # 15b: the random-background training run
 
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
-TRAIN_STEPS = 24  # 6 per pose
+TRAIN_STEPS = 48  # in turns at grad_dtype float32 and bfloat16: 6 per pose each
 TRACE_STEPS = 4
 POSES = [(0.0, (0.0, 0.0, 0.0)), (0.01, (0.02, 0.0, 0.0)),
          (-0.01, (-0.02, 0.01, 0.0)), (0.0, (0.0, -0.02, 0.0))]
@@ -320,9 +338,9 @@ def compare(name, got, want):
     return mx
 
 
-def compare_grads(name, got, want):
-    """Normalised by max |want|: p99.9 and max of |got - want|; raises past
-    the gradient tiers."""
+def _grad_diff(name, got, want):
+    """(max, p99.9, scale) of |got - want| normalised by max |want|; raises
+    past the gradient tiers."""
     import torch
 
     if not bool(torch.isfinite(got).all()):
@@ -333,15 +351,65 @@ def compare_grads(name, got, want):
     d = ((got - want).abs() / scale).flatten().sort().values
     mx = float(d[-1])
     p999 = float(d[int(0.999 * (d.numel() - 1))])
-    log(f"  {name}: normalised max |diff| {mx:.3e}, p99.9 {p999:.3e} (scale {scale:.3e})")
     if mx > GRAD_MAX_TOL or p999 > GRAD_P999_TOL:
         raise AssertionError(
             f"{name}: kernel and plain version disagree (max {mx:.3e} > {GRAD_MAX_TOL} "
             f"or p99.9 {p999:.3e} > {GRAD_P999_TOL})")
+    return mx, p999, scale
+
+
+def compare_grads(name, got, want):
+    """Normalised by max |want|: p99.9 and max of |got - want|; raises past
+    the gradient tiers."""
+    mx, p999, scale = _grad_diff(name, got, want)
+    log(f"  {name}: normalised max |diff| {mx:.3e}, p99.9 {p999:.3e} (scale {scale:.3e})")
     return mx
 
 
+def bf16_unit(x):
+    """One bf16 rounding unit at each value of ``x``: 2^(e - 8) for |x| in
+    [2^(e - 1), 2^e) (8 significant bits), 0 at 0."""
+    import torch
+
+    mant, exp = torch.frexp(x.abs().double())
+    return torch.where(mant == 0, torch.zeros_like(mant), torch.ldexp(torch.ones_like(mant),
+                                                                      exp - 8))
+
+
+def compare_bf16_grads(name, kb, pb, pair_gauss, tile_start, n_gauss):
+    """The kernel's packed bf16 table ``kb`` against the plain version's
+    ``pb`` (each its own float32 table rounded), per pair and per gaussian:
+    the gradient tiers on what is left of |kernel - plain| after one bf16
+    rounding unit per pair value (per gaussian: the sum of its pairs'
+    units). Where the two float32 values straddle a rounding boundary
+    they round one unit apart; the count of such values is logged. Returns
+    the largest normalised max left."""
+    import torch
+
+    from gsjax_torch.ops.cuda_composite import reduce_pair_grads, unpack_bf16_pairs
+
+    ku, pu = unpack_bf16_pairs(kb).double(), unpack_bf16_pairs(pb).double()
+    unit = bf16_unit(torch.maximum(ku.abs(), pu.abs()))
+    kr = reduce_pair_grads(kb, pair_gauss, tile_start, n_gauss).double()
+    pr = reduce_pair_grads(pb, pair_gauss, tile_start, n_gauss).double()
+    unit_g = reduce_pair_grads(unit.float(), pair_gauss, tile_start, n_gauss).double()
+    worst = 0.0
+    for level, got, want, units in (("pair", ku, pu, unit), ("per-gaussian", kr, pr, unit_g)):
+        apart = int((got != want).sum())
+        diffs = []
+        for i, nm in enumerate(GRAD_NAMES):
+            left = torch.clamp_min((got[:, i] - want[:, i]).abs() - units[:, i], 0.0)
+            diffs.append(_grad_diff(f"{name} {level} {nm}", want[:, i] + left, want[:, i]))
+        worst = max(worst, max(d[0] for d in diffs))
+        log(f"  {name} {level}: {apart} of {got.numel()} values apart; beyond one rounding "
+            f"unit a value, normalised max per column {', '.join(f'{d[0]:.2e}' for d in diffs)}"
+            f"; p99.9 at most {max(d[1] for d in diffs):.2e}")
+    return worst
+
+
 GRAD_NAMES = ("mean_x", "mean_y", "conic_a", "conic_b", "conic_c", "opacity", "r", "g", "b")
+# grad_dtype "bfloat16": each grad_reduce and whether it rounds half up
+BF16_MODES = (("sort", True), ("gather", False))
 
 
 def check_train_kernels(tag, args):
@@ -350,7 +418,10 @@ def check_train_kernels(tag, args):
     against composite_infer's, and both against the forward's walk without
     the cull (colors, T, n_contrib); two backward runs bit-identical; the
     backward's per-pixel contributing counts against the plain version's,
-    and with the cull against without it.
+    and with the cull against without it; at ``grad_dtype`` bfloat16, under
+    both roundings, the kernel's packed table against its own float32
+    table packed (bit for bit) and against the plain version, two runs,
+    and the check instances' tables.
     Returns ``(fwd max err, bwd max normalised err, the backward's inputs,
     contributing evaluations, the plain version's backward warp-level
     counts, the forward's warp-level work)``."""
@@ -359,7 +430,7 @@ def check_train_kernels(tag, args):
     from gsjax_torch.ops.cuda_composite import (
         composite_bwd, composite_bwd_counts, composite_bwd_plain, composite_fwd,
         composite_fwd_check, composite_fwd_plain, composite_grads, composite_infer,
-        reduce_pair_grads,
+        pack_bf16_pairs, reduce_pair_grads,
     )
     from gsjax_torch.utils.profiling import fwd_work
 
@@ -424,6 +495,29 @@ def check_train_kernels(tag, args):
         raise AssertionError(f"{tag}: the backward's contributing counts disagree (equal on "
                              f"{agree:.5f} of pixels, sum |diff| {int(diff.sum())}, totals "
                              f"{rel:.3e} relative)")
+
+    for reduce, half_up in BF16_MODES:
+        mtag = f"{tag} bf16/{reduce}"
+        kb = composite_bwd(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+        packed = pack_bf16_pairs(kg, half_up=half_up)
+        torch.cuda.synchronize()
+        if kb.dtype != torch.int32 or not torch.equal(kb, packed):
+            raise AssertionError(f"{mtag}: the kernel's packed table differs from its float32 "
+                                 f"table packed on {int((kb != packed).any(1).sum())} pairs")
+        pb = composite_bwd_plain(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+        err_b = max(err_b, compare_bf16_grads(mtag, kb, pb, pair_gauss, tile_start, n))
+        runs = [composite_grads(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+                for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{mtag}: two backward runs differ")
+        for cull in (True, False):
+            table, c = composite_bwd_counts(*bwd, cull=cull, grad_dtype="bfloat16",
+                                            grad_reduce=reduce)
+            if not (torch.equal(table, kb) and torch.equal(c, counts)):
+                raise AssertionError(f"{mtag}: the check instance (cull {cull}) differs from "
+                                     f"the training instance")
+        log(f"  {mtag}: the kernel's (P, 5) table == pack_bf16_pairs(its float32 table, "
+            f"half_up={half_up}), bit for bit; two runs bit-identical; check instances equal")
     return err_f, err_b, bwd, want, stats, fw
 
 
@@ -561,12 +655,12 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
 
     from gsjax_torch.ops import cuda_composite
     from gsjax_torch.ops.cuda_composite import (
-        composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
+        PACK_W, composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
         composite_infer_plain, reduce_pair_grads,
     )
     from gsjax_torch.ops.projection import num_tiles
     from gsjax_torch.train.step import TrainConfig, make_render_fn
-    from gsjax_torch.utils.profiling import bwd_work, composite_work
+    from gsjax_torch.utils.profiling import bound_ms, bwd_work, composite_work
 
     log(f"phase 4: main path, {n} gaussians at {w}x{h}")
     state, rcams = bench_scene(device, n, capacity, w, h)
@@ -629,12 +723,30 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         fwd_plain_ms = time_cuda(lambda: composite_fwd_plain(*args), 2)
         bwd_ms = time_cuda(lambda: composite_bwd(*bwd), 20)
         bwd_plain_ms = time_cuda(lambda: composite_bwd_plain(*bwd), 1)
+        n_gauss = cache["attrs"].shape[0]
         pair_grads = composite_bwd(*bwd)
         reduce_ms = time_cuda(lambda: reduce_pair_grads(
-            pair_grads, b.pair_gauss, b.tile_start, cache["attrs"].shape[0]), 10)
+            pair_grads, b.pair_gauss, b.tile_start, n_gauss), 10)
+        # gsjax's bench and training default: bf16 pairs, rounded half up
+        # (grad_reduce "sort"); the two dtypes' kernels and reductions in turns
+        bf16 = dict(grad_dtype="bfloat16", grad_reduce="sort")
+        packed = composite_bwd(*bwd, **bf16)
+        bwd_t = {"float32": [], "bfloat16": []}
+        red_t = {"float32": [], "bfloat16": []}
+        for _ in range(4):
+            for dt, kw, table in (("float32", {}, pair_grads), ("bfloat16", bf16, packed)):
+                bwd_t[dt].append(time_cuda(lambda: composite_bwd(*bwd, **kw), 5))
+                red_t[dt].append(time_cuda(lambda: reduce_pair_grads(
+                    table, b.pair_gauss, b.tile_start, n_gauss), 5))
+        bwd_bf16_ms = statistics.median(bwd_t["bfloat16"])
+        reduce_bf16_ms = statistics.median(red_t["bfloat16"])
     log(f"  composite_fwd {fwd_ms:.3f} ms (plain {fwd_plain_ms:.1f}); composite_bwd "
         f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.1f}); reduction to gaussians "
         f"{reduce_ms:.3f} ms")
+    log(f"  in turns, 4 rounds of 5 calls, median: composite_bwd float32 "
+        f"{statistics.median(bwd_t['float32']):.4f} ms, bfloat16 {bwd_bf16_ms:.4f} ms; "
+        f"reduction float32 {statistics.median(red_t['float32']):.4f} ms, bfloat16 "
+        f"{reduce_bf16_ms:.4f} ms (rounds {json.dumps(bwd_t)}, {json.dumps(red_t)})")
 
     n_pairs = int(b.num_pairs)
     fwd_walk = 32 * fw["steps_walked"]  # what the forward's per-warp cull leaves
@@ -647,6 +759,8 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     log(f"  backward warp-level work: {json.dumps(bwd_work(bwd_stats))}")
     work = composite_work(b.pair_gauss, cache["attrs"], tx, ty, fwd_walk, fw["blends"],
                           walk, n_live)
+    work_bf16 = composite_work(b.pair_gauss, cache["attrs"], tx, ty, fwd_walk, fw["blends"],
+                               walk, n_live, bwd_row_words=PACK_W)["composite_bwd"]
     # exps: the forward's per tested pixel, the backward's per contribution
     entries = [
         entry(name, f"gsjax/ops/pallas_composite.py:{line}", launches_, err_, ms, plain,
@@ -657,6 +771,13 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
             ("composite_bwd", 754, 0, err_b, bwd_ms, bwd_plain_ms, n_live),
         )
     ]
+    # the bf16 instance (grad_dtype "bfloat16", grad_reduce "sort"): 20
+    # bytes a pair written instead of 36
+    bound, by = bound_ms(*work_bf16, n_live)
+    log(f"  composite_bwd bf16 bound: {work_bf16[0]} bytes, {work_bf16[1]} float32 ops, "
+        f"{n_live} exps -> {bound:.4f} ms ({by})")
+    entries[2].update(ms_bf16=bwd_bf16_ms, bound_ms_bf16=bound, bound_by_bf16=by,
+                      reduce_ms=reduce_ms, reduce_ms_bf16=reduce_bf16_ms)
     return entries, state, rcams, settings, b.tile_start
 
 
@@ -747,7 +868,7 @@ def step_phases(state, opt, rcam, gt, cfg):
     d_tc, d_tT = torch.autograd.grad(loss, [tc, tT])
     marks[3].record()
     pair_grads = composite_bwd(bins.tile_start, bins.pair_gauss, attrs, d_tc, d_tT, tT.detach(),
-                               ncon, tx, ty)
+                               ncon, tx, ty, grad_dtype=s.grad_dtype, grad_reduce=s.grad_reduce)
     marks[4].record()
     per = reduce_pair_grads(pair_grads, bins.pair_gauss, bins.tile_start, attrs.shape[0])
     marks[5].record()
@@ -763,10 +884,15 @@ def step_phases(state, opt, rcam, gt, cfg):
 
 
 def train_path(device, state, rcams, settings):
-    """The training path at full width: 24 steps of make_train_step on the
-    bench scene, one step split in phases, and a trace of 4 more. Returns
-    the launch counts of (composite_infer, composite_fwd, composite_bwd) in
-    the counted run."""
+    """The training path at full width: 48 steps of make_train_step on the
+    bench scene, in turns at ``grad_dtype`` float32 (``settings``) and
+    bfloat16 (gsjax's default, rounded half up under ``grad_reduce``
+    "sort"), each one's steps split in phases, and a trace of 4 more
+    float32 steps. Returns the launch counts of (composite_infer,
+    composite_fwd, composite_bwd, composite_bwd's bf16 instances) in the
+    counted run."""
+    import dataclasses
+
     import torch
 
     from gsjax_torch.configs import OptimizationParams
@@ -778,29 +904,36 @@ def train_path(device, state, rcams, settings):
 
     w, h = rcams[0].width, rcams[0].height
     log(f"phase 5: training path, {TRAIN_STEPS} steps of make_train_step, "
-        f"{int(state.num_active)} gaussians at {w}x{h}")
-    cfg = TrainConfig(settings=settings, extent=3.0)
+        f"{int(state.num_active)} gaussians at {w}x{h}, in turns at grad_dtype float32 and "
+        f"bfloat16")
+    cfgs = {dt: TrainConfig(settings=dataclasses.replace(settings, grad_dtype=dt,
+                                                         grad_reduce="sort"), extent=3.0)
+            for dt in ("float32", "bfloat16")}
+    cfg = cfgs["float32"]
     images = shifted_targets(state, rcams, cfg, device)
     tx = make_optimizer(OptimizationParams(), 3.0)
     opt = tx.init(state.params)
-    step = make_train_step(tx, stack_render_cameras(rcams), images, cfg)
+    cams = stack_render_cameras(rcams)
+    steps = {dt: make_train_step(tx, cams, images, c) for dt, c in cfgs.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     cc.composite_infer.launches = cc.composite_fwd.launches = cc.composite_bwd.launches = 0
+    cc.composite_bwd.launches_bf16 = 0
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(TRAIN_STEPS)]
     metrics = []
+    order = [("float32", "bfloat16")[i % 2] for i in range(TRAIN_STEPS)]
     t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
+    for i, dt in enumerate(order):  # each pose twice in a row, once at each dtype
         ev[i][0].record()
-        state, opt, m = step(state, opt, i % len(rcams))
+        state, opt, m = steps[dt](state, opt, (i // 2) % len(rcams))
         ev[i][1].record()
         metrics.append(m)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = (cc.composite_infer.launches, cc.composite_fwd.launches,
-                cc.composite_bwd.launches)
+                cc.composite_bwd.launches, cc.composite_bwd.launches_bf16)
 
     losses = [float(m["loss"]) for m in metrics]
     dropped = [int(m["num_dropped_pairs"]) for m in metrics]
@@ -812,29 +945,41 @@ def train_path(device, state, rcams, settings):
     first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
     if not last < first:
         raise AssertionError(f"loss did not fall: first 4 {first:.6f}, last 4 {last:.6f}")
-    if launches != (0, TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"launches (infer, fwd, bwd) {launches}, want "
-                             f"(0, {TRAIN_STEPS}, {TRAIN_STEPS})")
+    want = (0, TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS // 2)
+    if launches != want:
+        raise AssertionError(f"launches (infer, fwd, bwd, bwd bf16) {launches}, want {want}")
     log(f"  {TRAIN_STEPS} steps from {len(rcams)} poses: num_dropped 0, finite params; "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f} (mean of first 4 {first:.6f}, last 4 "
-        f"{last:.6f}); launches infer/fwd/bwd {launches}")
-    log(f"  step ms (CUDA events, n={TRAIN_STEPS}): median {statistics.median(step_ms):.3f}, "
-        f"p75 {statistics.quantiles(step_ms, n=4)[2]:.3f}, min {min(step_ms):.3f}, "
-        f"max {max(step_ms):.3f}; host wall {1000.0 * wall_s / TRAIN_STEPS:.3f} ms/step; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"{last:.6f}); launches infer/fwd/bwd/bwd bf16 {launches}")
+    by_dt = {dt: [t for t, d in zip(step_ms, order) if d == dt] for dt in steps}
+    f32 = by_dt["float32"]
+    log(f"  step ms (CUDA events, n={len(f32)}): median {statistics.median(f32):.3f}, "
+        f"p75 {statistics.quantiles(f32, n=4)[2]:.3f}, min {min(f32):.3f}, "
+        f"max {max(f32):.3f}; grad_dtype float32; host wall (both) "
+        f"{1000.0 * wall_s / TRAIN_STEPS:.3f} ms/step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    bf = by_dt["bfloat16"]
+    log(f"  grad_dtype bfloat16 steps, ms over n={len(bf)} (CUDA events): median "
+        f"{statistics.median(bf):.3f}, p75 {statistics.quantiles(bf, n=4)[2]:.3f}, "
+        f"min {min(bf):.3f}, max {max(bf):.3f}")
 
     gt = images[0].to(torch.float32) / 255.0
-    for _ in range(2):  # the second is reported
-        phases = step_phases(state, opt, rcams[0], gt, cfg)
-    log("  one step's phases, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
-        + f"; sum {sum(phases.values()):.3f}")
+    rounds = {dt: [] for dt in steps}
+    for _ in range(4):  # in turns; the first round is a warm-up
+        for dt, c in cfgs.items():
+            rounds[dt].append(step_phases(state, opt, rcams[0], gt, c))
+    for dt, label in (("float32", "one step's phases"),
+                      ("bfloat16", "one grad_dtype bfloat16 step's phases")):
+        ph = {k: statistics.median(r[k] for r in rounds[dt][1:]) for k in rounds[dt][0]}
+        log(f"  {label}, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ph.items())
+            + f"; sum {sum(ph.values()):.3f}")
 
     # torch.profiler over a few more steps: kernels by device time, and the
     # share of the window in which the device was busy
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp) as prof:
             for i in range(TRACE_STEPS):
-                state, opt, _ = step(state, opt, i % len(rcams))
+                state, opt, _ = steps["float32"](state, opt, i % len(rcams))
             torch.cuda.synchronize()
         summary = device_summary(prof)
     if summary is None:
@@ -1148,7 +1293,9 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
         log(f"  test PSNR {psnr}; it/s {[(r['iter'], round(r['it_per_s'], 2)) for r in progress]}; "
             f"wall {done['wall_s']:.1f} s; peak memory {done['peak_memory_gib']} GiB; "
             f"{done['num_active']} gaussians (capacity {done['capacity']}); launches "
-            f"{done['launches']} (want {want}); max opacity after the reset {opac.max():.5f}")
+            f"{done['launches']} (want {want}), of composite_bwd's the bf16 instance's "
+            f"{done['bwd_launches_bf16']} (grad_dtype bfloat16, gsjax's training default); "
+            f"max opacity after the reset {opac.max():.5f}")
         checks = {
             "densify events with clones and splits": bool(dens) and cloned > 0 and split > 0,
             "a capacity growth": bool(grows),
@@ -1160,6 +1307,8 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
                 and progress[-1]["dropped_pairs"] == 0,
             "launches: fwd and bwd once per step, infer once per eval view":
                 device != "cuda" or done["launches"] == want,
+            "the backward's bf16 instance every step (grad_dtype bfloat16)":
+                device != "cuda" or done["bwd_launches_bf16"] == iterations,
         }
 
         # resume from the checkpoint for `resume` iterations
@@ -1173,7 +1322,8 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
         log(f"  resumed at {half}: {resume} iterations in {done2['wall_s']:.1f} s, test PSNR "
             f"{[e['test']['psnr'] for e in evals2]}, launches {done2['launches']} (want {want2})")
         checks["the resumed run evaluated"] = len(evals2) == 1
-        checks["resumed launches"] = device != "cuda" or done2["launches"] == want2
+        checks["resumed launches"] = device != "cuda" or (
+            done2["launches"] == want2 and done2["bwd_launches_bf16"] == resume)
 
         # the snapshot through the render and metrics CLIs
         out = run_module(phase, ["gsjax_torch.render", "-m", model, "--skip_train",
@@ -2454,10 +2604,11 @@ def main() -> int:
     errs512, ts512 = phase_compare(device)
     entries, state, rcams, settings, ts1080 = main_path(device)
     launches = train_path(device, state, rcams, settings)
-    for e, err512, n_launch in zip(entries, errs512, (None,) + launches[1:]):
+    for e, err512, n_launch in zip(entries, errs512, (None,) + launches[1:3]):
         e["max_abs_err"] = max(e["max_abs_err"], err512)
         if n_launch is not None:
             e["launches"] = n_launch
+    entries[2]["launches_bf16"] = launches[3]
     del state
     phase_scan_vs_kernel(device)
     phase_cli(device)

@@ -35,8 +35,9 @@ Where it differs from gsjax's bench:
   footprints (its widest gaussian spans 100 tiles at 1080p), and the bench
   prints no number when any stage reports ``num_dropped > 0``: gsjax's 16
   drops 16,838 pairs there unchecked.
-- ``--grad_dtype`` is accepted and recorded; the port computes the
-  per-pair gradients in float32 whatever it says.
+- ``--grad_dtype`` (default ``bfloat16``, gsjax's) selects the backward's
+  per-pair table in stages 3-5, as in gsjax: bf16 pairs rounded half up
+  under the default ``grad_reduce="sort"``.
 - The cross-check sizes ``max_tiles_per_gauss`` from the widest footprint
   (gsjax's 16 drops 265 pairs of that scene) and the scan's
   ``max_splats_per_tile`` from the deepest tile (gsjax: 2048, whose

@@ -4,10 +4,22 @@
 // _composite_bwd_kernel (launched from composite_pallas_grads). For every
 // sorted pair it writes the nine gradients of the loss with respect to the
 // pair's gaussian as seen by that tile — mean x, mean y, conic a, b, c,
-// opacity, r, g, b — into row i of a zero-initialised (P, 9) float32
-// table; the reduction to gaussians is plain torch
-// (cuda_composite.reduce_pair_grads). Rows of pairs that no pixel blends
-// stay zero.
+// opacity, r, g, b — into row i of a zero-initialised table; the reduction
+// to gaussians is plain torch (cuda_composite.reduce_pair_grads). Rows of
+// pairs that no pixel blends stay zero. The table is one of three outputs,
+// as gsjax's grad_dtype and grad_reduce select them:
+//
+// - OUT_F32: (P, 9) float32 (grad_dtype "float32");
+// - OUT_BF16_UP: (P, 5) int32, the nine float32 values rounded to bf16
+//   and packed in pairs (mx, my), (ca, cb), (cc, op), (r, g), (b, 0), the
+//   first of a pair in the high half — gsjax's packed mode of
+//   grad_reduce "sort" (_pack_bf16_pair_rows, pallas_composite.py:268),
+//   which rounds the magnitude half up: (bits + 0x8000) >> 16;
+// - OUT_BF16_EVEN: the same layout rounded to nearest even, as gsjax's
+//   bfloat16 output buffer under grad_reduce "gather" (.astype, :955).
+//
+// The packed modes compute the same float32 values as OUT_F32 and round
+// them in the finish loop, so their words are OUT_F32's table packed.
 //
 // Math (pallas_composite.py:859-913). A pixel's forward blends its
 // contributing pairs i in depth order: C = sum_i c_i a_i T_i, T_{i+1} =
@@ -67,7 +79,8 @@
 // - Finish. All 256 threads turn a batch's partials into table rows: each
 //   output word of the batch's contiguous rows sums the marked warps'
 //   partials in warp order (two 16-byte loads), with little divergence;
-//   the stores are coalesced. A pair no warp marked writes nothing.
+//   the stores are coalesced. A pair no warp marked writes nothing. A
+//   packed word takes two gradients, rounded and packed in registers.
 // - Staging. Batches of 64 pairs run from the tile's end toward its
 //   start, double-buffered in shared memory: while batch k replays, the
 //   two 16-byte gaussian rows of batch k + 1 arrive by cp.async (TMA
@@ -94,6 +107,26 @@ constexpr int NSUM = 9;              // pixel sums per pair
 constexpr int PART_W = NSUM * NWARP + 4;  // a pair's partials, sum-major; 16-byte rows
 constexpr int GROUP = 8;             // pairs per warp reduce-scatter
 constexpr int MIN_BLOCKS = 3;        // blocks per SM: caps registers at 80
+constexpr int NPACK = (NSUM + 1) / 2;  // int32 words of a packed bf16 row
+
+// the table's output modes (see the header)
+constexpr int OUT_F32 = 0;
+constexpr int OUT_BF16_UP = 1;
+constexpr int OUT_BF16_EVEN = 2;
+
+// bf16 bits of x in the low 16 bits: the magnitude rounded half up
+// (OUT_BF16_UP, gsjax's integer rule, wrapping as its int32 add does) or
+// to nearest even, a NaN as the quiet NaN of its sign (OUT_BF16_EVEN, as
+// XLA converts to bfloat16)
+template <int kOut>
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if constexpr (kOut == OUT_BF16_UP) {
+    return (u + 0x8000u) >> 16;
+  } else {
+    return x != x ? ((u >> 16) & 0x8000u) | 0x7FC0u : (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+  }
+}
 
 // Reduce-scatter of v = M pairs x NSUM values over the lanes that differ
 // in bits OFF, OFF/2, ..., 1. Each halving step keeps the half of the
@@ -122,7 +155,7 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
-template <bool kCull, bool kCount>
+template <bool kCull, bool kCount, int kOut>
 __global__ void __launch_bounds__(PIX, MIN_BLOCKS)
 composite_bwd_kernel(const int32_t* __restrict__ tile_start,
                      const int32_t* __restrict__ pair_gauss,
@@ -131,7 +164,7 @@ composite_bwd_kernel(const int32_t* __restrict__ tile_start,
                      const float* __restrict__ d_T,          // (T, 256)
                      const float* __restrict__ final_T,      // (T, 256)
                      const int32_t* __restrict__ n_contrib,  // (T, 256)
-                     float* __restrict__ pair_grads,         // (P, 9), zeroed
+                     void* __restrict__ pair_grads,          // (P, 9) or (P, 5), zeroed
                      int32_t* __restrict__ counts,           // (T, 256), kCount only
                      int tiles_x) {
   static_assert(GROUP == 2 || GROUP == 4 || GROUP == 8, "group size");
@@ -323,12 +356,14 @@ composite_bwd_kernel(const int32_t* __restrict__ tile_start,
     cp_async_wait_all();
     __syncthreads();  // batch k's partials and masks are written; batch k + 1 has landed
 
-    // finish batch k: word f of its rows (pair llo + f / 9, column f % 9)
-    const int nwords = (batch_hi(k) - llo) * NSUM;
-    float* rows = pair_grads + static_cast<size_t>(start + llo) * NSUM;
+    // finish batch k: word f of its rows (pair llo + f / ROW_W, column
+    // f % ROW_W; a packed column holds gradients 2c and 2c + 1)
+    constexpr int ROW_W = kOut == OUT_F32 ? NSUM : NPACK;
+    const int nwords = (batch_hi(k) - llo) * ROW_W;
+    const size_t row0 = static_cast<size_t>(start + llo) * ROW_W;
     for (int f = tid; f < nwords; f += PIX) {
-      const int jj = f / NSUM;
-      const int c = f - jj * NSUM;
+      const int jj = f / ROW_W;
+      const int c = f - jj * ROW_W;
       const unsigned wrote = s_wrote[b][jj];
       if (wrote == 0u) continue;  // no pixel blends this pair: its row stays zero
       auto sum = [&](int q) {     // the marked warps' partials of sum q, in warp order
@@ -341,61 +376,88 @@ composite_bwd_kernel(const int32_t* __restrict__ tile_start,
           if (wrote & (1u << w)) acc += p[w];
         return acc;
       };
-      const float4 gm = geom[jj];  // mean x, mean y, conic a, conic b
-      float r;
-      if (c == 5) {  // opacity
-        r = sum(0) / fmaxf(col[jj].w, 1e-12f);
-      } else if (c < 2) {  // mean x, mean y
-        const float s1 = sum(1), s2 = sum(2);
-        r = c == 0 ? gm.z * s1 + gm.w * s2 : row1[jj].x * s2 + gm.w * s1;
-      } else {  // conic a, b, c: -S_dxdx / 2, -S_dxdy, -S_dydy / 2; r, g, b
-        const float s = sum(c < 5 ? c + 1 : c);
-        r = (c == 2 || c == 4) ? -0.5f * s : (c == 3 ? -s : s);
+      // gradient g of the pair; one explicit fma in the means, so every
+      // output mode rounds the same float32 value
+      auto grad = [&](int g) {
+        const float4 gm = geom[jj];  // mean x, mean y, conic a, conic b
+        if (g == 5) return sum(0) / fmaxf(col[jj].w, 1e-12f);  // opacity
+        if (g < 2) {  // mean x, mean y
+          const float s1 = sum(1), s2 = sum(2);
+          return g == 0 ? fmaf(gm.z, s1, gm.w * s2) : fmaf(row1[jj].x, s2, gm.w * s1);
+        }
+        // conic a, b, c: -S_dxdx / 2, -S_dxdy, -S_dydy / 2; r, g, b
+        const float s = sum(g < 5 ? g + 1 : g);
+        return (g == 2 || g == 4) ? -0.5f * s : (g == 3 ? -s : s);
+      };
+      if constexpr (kOut == OUT_F32) {
+        static_cast<float*>(pair_grads)[row0 + f] = grad(c);
+      } else {
+        const uint32_t hi = bf16_bits<kOut>(grad(2 * c));
+        const uint32_t lo = 2 * c + 1 < NSUM ? bf16_bits<kOut>(grad(2 * c + 1)) : 0u;
+        static_cast<uint32_t*>(pair_grads)[row0 + f] = (hi << 16) | (lo & 0xFFFFu);
       }
-      rows[f] = r;
     }
     decode(k + 1);
   }
   if (kCount) counts[o] = n_live;
 }
 
-template <bool kCull, bool kCount>
+template <bool kCull, bool kCount, int kOut>
 void launch(const void* tile_start, const void* pair_gauss, const void* gauss_attrs,
             const void* d_colors, const void* d_T, const void* final_T, const void* n_contrib,
             void* pair_grads, void* counts, int num_tiles, int tiles_x, void* stream) {
   if (num_tiles <= 0) return;
-  composite_bwd_kernel<kCull, kCount>
+  composite_bwd_kernel<kCull, kCount, kOut>
       <<<num_tiles, PIX, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(tile_start), static_cast<const int32_t*>(pair_gauss),
           static_cast<const float4*>(gauss_attrs), static_cast<const float*>(d_colors),
           static_cast<const float*>(d_T), static_cast<const float*>(final_T),
-          static_cast<const int32_t*>(n_contrib), static_cast<float*>(pair_grads),
+          static_cast<const int32_t*>(n_contrib), pair_grads,
           static_cast<int32_t*>(counts), tiles_x);
+}
+
+using Launch = void (*)(const void*, const void*, const void*, const void*, const void*,
+                        const void*, const void*, void*, void*, int, int, void*);
+
+// the instance of (cull, count) for output mode `out`, or null
+template <bool kCull, bool kCount>
+Launch instance(int out) {
+  switch (out) {
+    case OUT_F32: return launch<kCull, kCount, OUT_F32>;
+    case OUT_BF16_UP: return launch<kCull, kCount, OUT_BF16_UP>;
+    case OUT_BF16_EVEN: return launch<kCull, kCount, OUT_BF16_EVEN>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
+// The training instance. out_mode: 0 (P, 9) float32, 1 (P, 5) int32 of
+// bf16 pairs rounded half up, 2 the same rounded to nearest even.
 extern "C" int gsjax_composite_bwd(const void* tile_start, const void* pair_gauss,
                                    const void* gauss_attrs, const void* d_colors,
                                    const void* d_T, const void* final_T,
                                    const void* n_contrib, void* pair_grads, int num_tiles,
-                                   int tiles_x, void* stream) {
-  launch<true, false>(tile_start, pair_gauss, gauss_attrs, d_colors, d_T, final_T, n_contrib,
-                      pair_grads, nullptr, num_tiles, tiles_x, stream);
+                                   int tiles_x, int out_mode, void* stream) {
+  const Launch fn = instance<true, false>(out_mode);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  fn(tile_start, pair_gauss, gauss_attrs, d_colors, d_T, final_T, n_contrib, pair_grads,
+     nullptr, num_tiles, tiles_x, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The check instances: the training instance (cull 1) or the same without
 // the per-warp cull (cull 0), each also writing every pixel's count of
-// contributing pairs into `counts` (T, 256) int32.
+// contributing pairs into `counts` (T, 256) int32; out_mode as above.
 extern "C" int gsjax_composite_bwd_counts(const void* tile_start, const void* pair_gauss,
                                           const void* gauss_attrs, const void* d_colors,
                                           const void* d_T, const void* final_T,
                                           const void* n_contrib, void* pair_grads,
                                           void* counts, int num_tiles, int tiles_x, int cull,
-                                          void* stream) {
-  (cull ? launch<true, true> : launch<false, true>)(
-      tile_start, pair_gauss, gauss_attrs, d_colors, d_T, final_T, n_contrib, pair_grads,
-      counts, num_tiles, tiles_x, stream);
+                                          int out_mode, void* stream) {
+  const Launch fn = cull ? instance<true, true>(out_mode) : instance<false, true>(out_mode);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  fn(tile_start, pair_gauss, gauss_attrs, d_colors, d_T, final_T, n_contrib, pair_grads,
+     counts, num_tiles, tiles_x, stream);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,10 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   and opacity as packed f16 words. The kernels gather their rows through
   ``pair_gauss`` themselves, so the (P, 8) pair table gsjax builds is
   never materialised.
+- :func:`pack_bf16_pairs` and :func:`unpack_bf16_pairs`, gsjax's
+  ``_pack_bf16_pair_rows`` / ``_unpack_bf16_pair_word`` on a whole
+  per-pair gradient table: the (P, 5) int32 table of bf16 pairs that the
+  backward writes under ``grad_dtype="bfloat16"``.
 - Three wrappers of hand-written CUDA kernels in ``gsjax_torch/csrc/``,
   each with a launch counter (``fn.launches``) and a plain PyTorch version
   with the same inputs, outputs and semantics:
@@ -42,10 +46,12 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
 
-Per-pair gradients are computed and reduced in float32 whatever
-``RasterizeSettings.grad_dtype`` and ``grad_reduce`` say: those are TPU
-bandwidth knobs of gsjax (bf16 grad tables, sort- or gather-based
-reduction) with no counterpart here.
+``RasterizeSettings.grad_dtype`` and ``grad_reduce`` select the backward's
+per-pair table as they select gsjax's Pallas output (see
+:func:`composite_bwd`): float32, or float32 values rounded to bf16 as
+gsjax rounds them — half up under ``"sort"``, to nearest even under
+``"gather"`` — and packed in pairs. The reduction unpacks them and sums
+in float32, in its own order whatever ``grad_reduce`` says.
 """
 
 from __future__ import annotations
@@ -65,6 +71,9 @@ from gsjax_torch.ops.projection import TILE
 PIX = TILE * TILE
 ATTR_W = 8  # float32 words per gaussian row
 GRAD_W = 9  # per-pair gradients: mean x/y, conic a/b/c, opacity, r/g/b
+PACK_W = 5  # int32 words of a packed bf16 row: (mx, my), (ca, cb), (cc, op), (r, g), (b, 0)
+GRAD_DTYPES = ("float32", "bfloat16")
+GRAD_REDUCES = ("sort", "gather")
 PLAIN_CHUNK = 32  # pairs per round of the plain versions' scans
 NWARP = PIX // 32  # warps of a tile's block; warp w holds pixel rows 2w, 2w + 1
 # csrc/composite_bwd.cu: pairs staged per batch, pairs per warp reduce-scatter
@@ -81,8 +90,8 @@ SOURCES = {
     "composite_infer.cu": {"gsjax_composite_infer": [_P] * 5 + [_I] * 2 + [_P]},
     "composite_fwd.cu": {"gsjax_composite_fwd": [_P] * 6 + [_I] * 2 + [_P],
                          "gsjax_composite_fwd_check": [_P] * 6 + [_I] * 2 + [_P]},
-    "composite_bwd.cu": {"gsjax_composite_bwd": [_P] * 8 + [_I] * 2 + [_P],
-                         "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 3 + [_P]},
+    "composite_bwd.cu": {"gsjax_composite_bwd": [_P] * 8 + [_I] * 3 + [_P],
+                         "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 4 + [_P]},
     # the speed-of-light probe (ops/cuda_probe.py)
     "sol_probe.cu": {"gsjax_sol_probe":
                      [_P] * 3 + [_I] * 5 + [ctypes.POINTER(ctypes.c_float), _P],
@@ -205,6 +214,47 @@ def decode_f16_pair(words):
         return torch.where(em < 1024, torch.zeros_like(f32), f32).view(torch.float32)
 
     return dec((bits >> 16) & 0xFFFF), dec(bits & 0xFFFF)
+
+
+def pack_bf16_pairs(grads, half_up: bool = True):
+    """(P, 9) float32 per-pair gradients -> (P, 5) int32: word w holds
+    bf16(column 2w) << 16 | bf16(column 2w + 1), a zero tenth column —
+    gsjax's ``_pack_bf16_pair_rows`` on the columns in pairs. ``half_up``
+    rounds the magnitude half up as gsjax's packed ``grad_reduce="sort"``
+    mode does, ``(bits + 0x8000) >> 16`` with int32 wrap-around; else to
+    nearest even as its bfloat16 buffer under ``"gather"`` (a NaN as the
+    quiet NaN of its sign, as XLA converts it). int32 ops only, on any
+    device."""
+    bits = torch.cat([grads.to(torch.float32), grads.new_zeros((grads.shape[0], 1),
+                                                               dtype=torch.float32)], 1)
+    bits = bits.contiguous().view(torch.int32)
+    if half_up:
+        r = bits + 0x8000
+    else:
+        r = torch.where(torch.isnan(bits.view(torch.float32)),
+                        (bits & -(1 << 31)) | 0x7FC00000, bits + 0x7FFF + ((bits >> 16) & 1))
+    return (r[:, 0::2] & -65536) | ((r[:, 1::2] >> 16) & 0xFFFF)
+
+
+def unpack_bf16_pairs(words):
+    """(P, 5) int32 of :func:`pack_bf16_pairs` -> (P, 9) float32, each bf16
+    widened exactly (gsjax's ``_unpack_bf16_pair_word``: the high half
+    masked, the low half shifted up)."""
+    halves = words.contiguous().view(torch.bfloat16).view(words.shape[0], PACK_W, 2)
+    # little-endian: the low half of each word comes first in memory
+    return halves.flip(-1).reshape(words.shape[0], 2 * PACK_W)[:, :GRAD_W].to(torch.float32)
+
+
+def _grad_mode(grad_dtype: str, grad_reduce: str) -> int:
+    """The backward kernel's output mode: 0 float32, 1 bf16 rounded half up
+    (``"sort"``), 2 bf16 rounded to nearest even (``"gather"``)."""
+    if grad_dtype not in GRAD_DTYPES:
+        raise ValueError(f"grad_dtype must be one of {GRAD_DTYPES}, got {grad_dtype!r}")
+    if grad_reduce not in GRAD_REDUCES:
+        raise ValueError(f"grad_reduce must be one of {GRAD_REDUCES}, got {grad_reduce!r}")
+    if grad_dtype == "float32":
+        return 0
+    return 1 if grad_reduce == "sort" else 2
 
 
 def unpack_gauss_attrs(gauss_attrs):
@@ -451,7 +501,8 @@ composite_fwd_check.launches = 0
 @torch.no_grad()
 def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
                         final_T, n_contrib, tiles_x: int, tiles_y: int,
-                        return_evals: bool = False):
+                        return_evals: bool = False, grad_dtype: str = "float32",
+                        grad_reduce: str = "sort"):
     """Plain PyTorch version of the backward kernel: the same closed-form
     per-pair gradients (see ``csrc/composite_bwd.cu``), computed chunk by
     chunk of ``PLAIN_CHUNK`` pairs back to front over every tile at once,
@@ -459,10 +510,24 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
     1080p). Within a chunk, T before each pair is the carried T divided by
     the suffix product of (1 - a), and S the carried S plus the exclusive
     suffix sum — the kernel's sequential replay up to float reassociation.
-    Returns the (P, 9) table; with ``return_evals`` also the (T, 256)
-    count of contributing (pair, pixel) evaluations and the kernel's
-    warp-level work (:func:`_bwd_warp_stats`)."""
+    Returns the (P, 9) float32 table, or at ``grad_dtype="bfloat16"`` it
+    packed by :func:`pack_bf16_pairs` with ``grad_reduce``'s rounding; with
+    ``return_evals`` also the (T, 256) count of contributing (pair, pixel)
+    evaluations and the kernel's warp-level work (:func:`_bwd_warp_stats`)."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    mode = _grad_mode(grad_dtype, grad_reduce)
+    out, n_live, stats = _bwd_plain_f32(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
+                                        d_tile_T, final_T, n_contrib, tiles_x, tiles_y,
+                                        return_evals)
+    if mode:
+        out = pack_bf16_pairs(out, half_up=mode == 1)
+    return (out, n_live, stats) if return_evals else out
+
+
+def _bwd_plain_f32(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
+                   n_contrib, tiles_x, tiles_y, return_evals):
+    """:func:`composite_bwd_plain`'s float32 table, contributing counts and
+    (with ``return_evals``) warp-level work."""
     num_tiles = tiles_x * tiles_y
     dev = gauss_attrs.device
     _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
@@ -475,9 +540,7 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
     # (pair, warp) steps with a contributing lane, per tile, warp and batch
     live_steps = torch.zeros((num_tiles, NWARP, n_batch), dtype=torch.int64, device=dev)
     if num_tiles == 0 or n_pairs == 0:
-        if return_evals:
-            return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, n_live)
-        return out
+        return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, n_live)
     means2d, conics, colors, opacities = unpack_gauss_attrs(gauss_attrs)
     pix = _tile_pixel_coords(tiles_x, tiles_y, dev)
     px, py = pix[:, :, None, 0], pix[:, :, None, 1]
@@ -548,7 +611,7 @@ def composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_ti
         S = S + q.sum(-1)
     if return_evals:
         return out, n_live, _bwd_warp_stats(ncon, maxn, live_steps, n_live, steps_walked)
-    return out
+    return out, n_live, None
 
 
 def footprint_box_plain(means2d, conics, opacities):
@@ -614,65 +677,88 @@ def _bwd_warp_stats(ncon, maxn, live_steps, n_live, steps_walked=0):
     }
 
 
+def _bwd_table(n_pairs, mode, dev):
+    """The kernel's zeroed output table for output mode ``mode``."""
+    if mode == 0:
+        return torch.zeros((n_pairs, GRAD_W), dtype=torch.float32, device=dev)
+    return torch.zeros((n_pairs, PACK_W), dtype=torch.int32, device=dev)
+
+
 def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
-                  n_contrib, tiles_x: int, tiles_y: int):
-    """Per-pair gradients of the compositing: row i of the returned (P, 9)
-    float32 table holds d(loss)/d(mean x, mean y, conic a, b, c, opacity,
-    r, g, b) of sorted pair i's gaussian as blended in its tile; rows of
-    pairs that no pixel blends are zero. Inputs: the forward's inputs,
-    the cotangents ``d_tile_colors`` (T, 256, 3) and ``d_tile_T`` (T, 256),
-    and the forward's ``final_T`` (T, 256) and ``n_contrib`` (T, 256)
-    int32. CUDA tensors launch the kernel (counted in
-    ``composite_bwd.launches``); CPU tensors take
+                  n_contrib, tiles_x: int, tiles_y: int, grad_dtype: str = "float32",
+                  grad_reduce: str = "sort"):
+    """Per-pair gradients of the compositing: row i of the returned table
+    holds d(loss)/d(mean x, mean y, conic a, b, c, opacity, r, g, b) of
+    sorted pair i's gaussian as blended in its tile; rows of pairs that no
+    pixel blends are zero. Inputs: the forward's inputs, the cotangents
+    ``d_tile_colors`` (T, 256, 3) and ``d_tile_T`` (T, 256), and the
+    forward's ``final_T`` (T, 256) and ``n_contrib`` (T, 256) int32.
+
+    The table is (P, 9) float32 at ``grad_dtype="float32"``; at
+    ``"bfloat16"`` the kernel rounds the same float32 values to bf16 and
+    packs them (:func:`pack_bf16_pairs`) into a (P, 5) int32 table, half
+    up under ``grad_reduce="sort"`` and to nearest even under
+    ``"gather"``, as gsjax's ``composite_pallas_grads`` does. Other values
+    raise. CUDA tensors launch the kernel (counted in
+    ``composite_bwd.launches``, its bf16 instances also in
+    ``composite_bwd.launches_bf16``); CPU tensors take
     :func:`composite_bwd_plain`; anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    mode = _grad_mode(grad_dtype, grad_reduce)
     dev = gauss_attrs.device
     if dev.type == "cpu":
         return composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
-                                   d_tile_T, final_T, n_contrib, tiles_x, tiles_y)
+                                   d_tile_T, final_T, n_contrib, tiles_x, tiles_y,
+                                   grad_dtype=grad_dtype, grad_reduce=grad_reduce)
     _cuda_device("composite_bwd", dev)
     num_tiles = tiles_x * tiles_y
     _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
     ins = [x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs, d_tile_colors,
                                     d_tile_T, final_T, n_contrib)]
-    pair_grads = torch.zeros((pair_gauss.shape[0], GRAD_W), dtype=torch.float32, device=dev)
+    pair_grads = _bwd_table(pair_gauss.shape[0], mode, dev)
     with torch.cuda.device(dev):
         _launch("composite_bwd", load_library().gsjax_composite_bwd,
-                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), num_tiles, tiles_x)
+                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), num_tiles, tiles_x, mode)
     composite_bwd.launches += 1
+    composite_bwd.launches_bf16 += mode != 0
     return pair_grads
 
 
 composite_bwd.launches = 0
+composite_bwd.launches_bf16 = 0
 
 
 def composite_bwd_counts(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
-                         final_T, n_contrib, tiles_x: int, tiles_y: int, cull: bool = True):
+                         final_T, n_contrib, tiles_x: int, tiles_y: int, cull: bool = True,
+                         grad_dtype: str = "float32", grad_reduce: str = "sort"):
     """The backward kernel's check instances, never on the training path:
     :func:`composite_bwd`'s instance (``cull``) or the same without its
     per-warp cull, each also writing every pixel's count of contributing
-    pairs — the exact check that no contribution was lost. Returns the
-    (P, 9) table and the (T, 256) int32 counts. CUDA tensors launch the
-    kernel (counted in ``composite_bwd_counts.launches``, not in
-    ``composite_bwd.launches``); CPU tensors take
-    :func:`composite_bwd_plain` (its ``n_live`` as the counts)."""
+    pairs — the exact check that no contribution was lost. Returns
+    :func:`composite_bwd`'s table for ``grad_dtype`` and ``grad_reduce``
+    and the (T, 256) int32 counts. CUDA tensors launch the kernel (counted
+    in ``composite_bwd_counts.launches``, not in ``composite_bwd.launches``);
+    CPU tensors take :func:`composite_bwd_plain` (its ``n_live`` as the
+    counts)."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
+    mode = _grad_mode(grad_dtype, grad_reduce)
     dev = gauss_attrs.device
     args = (tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, final_T,
             n_contrib, tiles_x, tiles_y)
     if dev.type == "cpu":
-        out, n_live, _ = composite_bwd_plain(*args, return_evals=True)
+        out, n_live, _ = composite_bwd_plain(*args, return_evals=True, grad_dtype=grad_dtype,
+                                             grad_reduce=grad_reduce)
         return out, n_live.to(torch.int32)
     _cuda_device("composite_bwd_counts", dev)
     num_tiles = tiles_x * tiles_y
     _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
     ins = [x.contiguous() for x in args[:7]]
-    pair_grads = torch.zeros((pair_gauss.shape[0], GRAD_W), dtype=torch.float32, device=dev)
+    pair_grads = _bwd_table(pair_gauss.shape[0], mode, dev)
     counts = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("composite_bwd_counts", load_library().gsjax_composite_bwd_counts,
                 *(x.data_ptr() for x in ins), pair_grads.data_ptr(), counts.data_ptr(),
-                num_tiles, tiles_x, int(bool(cull)))
+                num_tiles, tiles_x, int(bool(cull)), mode)
     composite_bwd_counts.launches += 1
     return pair_grads, counts
 
@@ -686,8 +772,12 @@ composite_bwd_counts.launches = 0
 
 
 def reduce_pair_grads(pair_grads, pair_gauss, tile_start, n_gauss: int):
-    """Sum the (P, 9) per-pair gradients of the valid pairs (the first
-    ``tile_start[-1]``) into (n_gauss, 9) per-gaussian ones.
+    """Sum the per-pair gradients of the valid pairs (the first
+    ``tile_start[-1]``) into (n_gauss, 9) float32 per-gaussian ones. The
+    table is :func:`composite_bwd`'s: (P, 9) float32, or (P, 5) int32 of
+    packed bf16 pairs, whose gathered rows are widened to float32
+    (:func:`unpack_bf16_pairs`) before the sum, as gsjax sums its bf16
+    gradients in float32.
 
     ``pair_gauss`` holds each pair's original gaussian row, so reducing by
     it needs none of gsjax's slot bookkeeping (``gauss_inv_perm``, the
@@ -701,18 +791,23 @@ def reduce_pair_grads(pair_grads, pair_gauss, tile_start, n_gauss: int):
         return torch.zeros((n_gauss, GRAD_W), dtype=torch.float32, device=pair_grads.device)
     g, order = torch.sort(pair_gauss[:num_valid].to(torch.int64), stable=True)
     lengths = torch.bincount(g, minlength=n_gauss)
-    return torch.segment_reduce(pair_grads[:num_valid][order], "sum",
-                                lengths=lengths, axis=0, unsafe=True)
+    rows = pair_grads[:num_valid][order]
+    if rows.dtype == torch.int32:
+        rows = unpack_bf16_pairs(rows)
+    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def composite_grads(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
-                    final_T, n_contrib, tiles_x: int, tiles_y: int):
+                    final_T, n_contrib, tiles_x: int, tiles_y: int,
+                    grad_dtype: str = "float32", grad_reduce: str = "sort"):
     """Backward of the compositing to per-gaussian cotangents — the
     counterpart of gsjax's ``composite_pallas_grads``: :func:`composite_bwd`
-    then :func:`reduce_pair_grads`. Returns ``(d_means2d (N, 2), d_conics
-    (N, 3), d_colors (N, 3), d_opacities (N,))``."""
+    (at ``grad_dtype`` / ``grad_reduce``) then :func:`reduce_pair_grads`.
+    Returns ``(d_means2d (N, 2), d_conics (N, 3), d_colors (N, 3),
+    d_opacities (N,))``."""
     pair_grads = composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
-                               d_tile_T, final_T, n_contrib, tiles_x, tiles_y)
+                               d_tile_T, final_T, n_contrib, tiles_x, tiles_y,
+                               grad_dtype=grad_dtype, grad_reduce=grad_reduce)
     per_gauss = reduce_pair_grads(pair_grads, pair_gauss, tile_start, gauss_attrs.shape[0])
     return per_gauss[:, 0:2], per_gauss[:, 2:5], per_gauss[:, 6:9], per_gauss[:, 5]
 
@@ -721,17 +816,19 @@ class CompositeFunction(torch.autograd.Function):
     """Differentiable compositing (gsjax's ``_composite_vjp``): forward
     through :func:`composite_fwd`, backward through :func:`composite_grads`.
     Inputs ``(means2d, conics, colors, opacities, tile_start, pair_gauss,
-    tiles_x, tiles_y)``; outputs ``(tile_colors, tile_T)``; gradients for
-    the first four."""
+    tiles_x, tiles_y, grad_dtype, grad_reduce)``; outputs ``(tile_colors,
+    tile_T)``; gradients for the first four."""
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, tile_start, pair_gauss,
-                tiles_x, tiles_y):
+                tiles_x, tiles_y, grad_dtype, grad_reduce):
+        _grad_mode(grad_dtype, grad_reduce)  # raise before the forward, not in the backward
         attrs = pack_gauss_attrs(means2d, conics, colors, opacities)
         tile_colors, tile_T, n_contrib = composite_fwd(
             tile_start, pair_gauss, attrs, tiles_x, tiles_y)
         ctx.save_for_backward(tile_start, pair_gauss, attrs, tile_T, n_contrib)
         ctx.tiles = (tiles_x, tiles_y)
+        ctx.grad_settings = (grad_dtype, grad_reduce)
         return tile_colors, tile_T
 
     @staticmethod
@@ -739,13 +836,16 @@ class CompositeFunction(torch.autograd.Function):
         tile_start, pair_gauss, attrs, tile_T, n_contrib = ctx.saved_tensors
         d_means2d, d_conics, d_colors, d_opacities = composite_grads(
             tile_start, pair_gauss, attrs, d_tile_colors, d_tile_T, tile_T, n_contrib,
-            *ctx.tiles)
-        return d_means2d, d_conics, d_colors, d_opacities, None, None, None, None
+            *ctx.tiles, *ctx.grad_settings)
+        return d_means2d, d_conics, d_colors, d_opacities, *(None,) * 6
 
 
 def composite(means2d, conics, colors, opacities, tile_start, pair_gauss,
-              tiles_x: int, tiles_y: int):
+              tiles_x: int, tiles_y: int, grad_dtype: str = "float32",
+              grad_reduce: str = "sort"):
     """Differentiable compositing of one frame: ``(tile_colors (T, 256, 3),
-    tile_T (T, 256))``, with gradients to the four per-gaussian inputs."""
+    tile_T (T, 256))``, with gradients to the four per-gaussian inputs,
+    through the per-pair table that ``grad_dtype`` and ``grad_reduce``
+    select (:func:`composite_bwd`)."""
     return CompositeFunction.apply(means2d, conics, colors, opacities, tile_start,
-                                   pair_gauss, tiles_x, tiles_y)
+                                   pair_gauss, tiles_x, tiles_y, grad_dtype, grad_reduce)

@@ -24,8 +24,11 @@ port       gsjax       compositor
 The kernel backend follows gsjax's custom-VJP split: when grad is enabled
 and a blend input requires grad, it takes the differentiable
 :func:`~gsjax_torch.ops.cuda_composite.composite` (training forward kernel,
-backward kernel and reduction); otherwise the bookkeeping-free
-``composite_infer``, so the render path is exactly what it was.
+backward kernel and reduction), whose per-pair table follows
+``grad_dtype`` and ``grad_reduce`` as gsjax's Pallas backend's does;
+otherwise the bookkeeping-free ``composite_infer``, so the render path is
+exactly what it was. The scan backend ignores both settings, as gsjax's
+"xla" backend does.
 """
 
 from __future__ import annotations
@@ -43,7 +46,13 @@ from gsjax_torch.ops.composite import (
     assemble_image,
     composite_tiles,
 )
-from gsjax_torch.ops.cuda_composite import composite, composite_infer, pack_gauss_attrs
+from gsjax_torch.ops.cuda_composite import (
+    GRAD_DTYPES,
+    GRAD_REDUCES,
+    composite,
+    composite_infer,
+    pack_gauss_attrs,
+)
 from gsjax_torch.ops.projection import TILE, num_tiles, preprocess, project_points
 
 
@@ -54,11 +63,15 @@ class RasterizeSettings:
     duplication buffer (overflow is counted in ``num_dropped``);
     ``max_splats_per_tile`` bounds the scan's per-tile depth.
 
-    Fields the port does not read, kept so a settings object maps one to
-    one onto gsjax's: ``pallas_chunk`` (the kernels stage fixed batches),
-    ``grad_dtype`` and ``grad_reduce`` (gsjax's TPU bandwidth knobs: the
-    port computes and reduces per-pair gradients in float32 whatever they
-    say), ``splat_exchange`` and ``a2a_rows`` (multi-device)."""
+    ``grad_dtype`` ("float32" | "bfloat16") and ``grad_reduce`` ("sort" |
+    "gather") select the kernel backend's per-pair gradient table: float32,
+    or bf16 rounded as gsjax's Pallas backward rounds it (half up under
+    "sort", to nearest even under "gather"; see
+    ``cuda_composite.composite_bwd``); the reduction is the port's own
+    either way. ``splat_exchange`` and ``a2a_rows`` pick the sharded
+    path's splat exchange (``gsjax_torch.parallel.shard``). The one field
+    the port does not read, kept so a settings object maps one to one onto
+    gsjax's: ``pallas_chunk`` (the kernels stage fixed batches)."""
 
     max_pairs: int = 1 << 20
     max_splats_per_tile: int = 1024
@@ -80,7 +93,9 @@ class RasterizeSettings:
             raise ValueError("max_splats_per_tile must be a multiple of chunk")
         if self.backend not in ("auto", "scan", "kernel"):
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.grad_reduce not in ("gather", "sort"):
+        if self.grad_dtype not in GRAD_DTYPES:
+            raise ValueError(f"unknown grad_dtype {self.grad_dtype!r}")
+        if self.grad_reduce not in GRAD_REDUCES:
             raise ValueError(f"unknown grad_reduce {self.grad_reduce!r}")
         if self.splat_exchange not in ("all_gather", "a2a"):
             raise ValueError(f"unknown splat_exchange {self.splat_exchange!r}")
@@ -135,7 +150,8 @@ def render(
         blend_in = (splats.means2d, splats.conics, splats.colors, splats.opacities)
         if torch.is_grad_enabled() and any(t.requires_grad for t in blend_in):
             tile_colors, tile_T = composite(
-                *blend_in, bins.tile_start, bins.pair_gauss, tiles_x, tiles_y)
+                *blend_in, bins.tile_start, bins.pair_gauss, tiles_x, tiles_y,
+                settings.grad_dtype, settings.grad_reduce)
         else:
             tile_colors, tile_T = composite_infer(
                 bins.tile_start, bins.pair_gauss, pack_gauss_attrs(*blend_in),

@@ -350,7 +350,8 @@ def blend_strip(alls: Splats, bins, y0: int, strips_y: int, tiles_x: int, width:
         blend_in = _kernel_blend_inputs(alls, y0)
         if torch.is_grad_enabled() and any(t.requires_grad for t in blend_in):
             tile_colors, tile_T = composite(*blend_in, bins.tile_start, bins.pair_gauss,
-                                            tiles_x, strips_y)
+                                            tiles_x, strips_y, settings.grad_dtype,
+                                            settings.grad_reduce)
         else:
             tile_colors, tile_T = composite_infer(bins.tile_start, bins.pair_gauss,
                                                   pack_gauss_attrs(*blend_in), tiles_x,

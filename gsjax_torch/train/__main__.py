@@ -22,7 +22,9 @@ evaluates and saves; the others run quiet. A sharded run serves no viewer
 the bridge is off.
 
 On its last line the CLI prints one JSON object with the iterations run,
-the compositing kernels' launch counts over the run (this rank's), its wall
+the compositing kernels' launch counts over the run (this rank's; with
+``bwd_launches_bf16``, those of the backward's bf16 instances, which the
+default settings' ``grad_dtype="bfloat16"`` selects on CUDA), its wall
 time and, on CUDA, the peak device memory.
 """
 
@@ -184,6 +186,7 @@ def main(argv=None):
     kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd)
     for k in kernels:
         k.launches = 0
+    cc.composite_bwd.launches_bf16 = 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -213,6 +216,8 @@ def main(argv=None):
         "stage": "done", "rank": torch.distributed.get_rank() if distributed else 0, "iterations": opt.iterations, "wall_s": wall,
         "num_active": int(state.num_active), "capacity": state.capacity,
         "launches": {k.__name__: k.launches for k in kernels},
+        # of composite_bwd's launches, those of its bf16 instances (grad_dtype)
+        "bwd_launches_bf16": cc.composite_bwd.launches_bf16,
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
     }

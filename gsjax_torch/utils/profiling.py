@@ -298,7 +298,8 @@ def fwd_work(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int) ->
 
 
 def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk: int,
-                   fwd_blend: int, bwd_walk: int = 0, bwd_contrib: int = 0) -> Dict[str, tuple]:
+                   fwd_blend: int, bwd_walk: int = 0, bwd_contrib: int = 0,
+                   bwd_row_words: int = 9) -> Dict[str, tuple]:
     """``{kernel: (bytes, float32 operations)}`` of the three compositing
     kernels on one frame: each input read once, each output written once.
     ``fwd_walk`` and ``bwd_walk`` are the (pair, pixel) evaluations each
@@ -306,6 +307,8 @@ def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk
     (:func:`fwd_work`'s and :func:`bwd_work`'s ``steps_walked``), since a
     culled pair costs its warp's pixels no arithmetic; ``fwd_blend``
     blended and ``bwd_contrib`` contributing (pair, pixel) — the same set.
+    ``bwd_row_words``: 32-bit words of the backward's per-pair row, 9
+    float32 or 5 packed bf16 pairs (``grad_dtype="bfloat16"``).
 
     gsjax's count (every started 128-pair chunk x 256 pixels x 40) models
     the TPU kernel's padded lanes and is not carried over: these kernels
@@ -319,8 +322,9 @@ def composite_work(pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int, fwd_walk
     return {
         "composite_infer": (common + 4 * px, fwd_ops),  # rgb + T
         "composite_fwd": (common + 5 * px, fwd_ops),  # + n_contrib
-        # in: also d_colors (3), d_T, final_T, n_contrib per pixel; out: (P, 9)
-        "composite_bwd": (common + 6 * px + p * 9 * 4,
+        # in: also d_colors (3), d_T, final_T, n_contrib per pixel; out: the
+        # (P, bwd_row_words) table
+        "composite_bwd": (common + 6 * px + p * bwd_row_words * 4,
                           bwd_walk * OPS_BWD_WALK + bwd_contrib * OPS_BWD_CONTRIB),
     }
 

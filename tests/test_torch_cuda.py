@@ -379,23 +379,90 @@ def test_bwd_kernel_and_reduction_are_deterministic():
         assert torch.equal(a, b)
 
 
+BF16_MODES = [("sort", True), ("gather", False)]  # grad_reduce, its half-up rounding
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "saturating"])
+@pytest.mark.parametrize("reduce,half_up", BF16_MODES, ids=["sort", "gather"])
+def test_bwd_bf16_kernel_packs_its_float32_table(reduce, half_up, dense):
+    """At grad_dtype bfloat16 the kernel writes the (P, 5) packed table
+    itself: bit for bit ``pack_bf16_pairs`` of its own float32 table (the
+    same float32 arithmetic, then gsjax's rounding), within the tiers of the
+    plain version after unpacking, per pair and per gaussian; the check
+    instances write the same table."""
+    dev = _cuda()
+    args = _inputs(_scene(300, 4, dense), 70, 45, dev)
+    bwd = _bwd_inputs(args)
+    kf = cc.composite_bwd(*bwd)
+    before = cc.composite_bwd.launches, cc.composite_bwd.launches_bf16
+    kb = cc.composite_bwd(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+    torch.cuda.synchronize()
+    assert (cc.composite_bwd.launches, cc.composite_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert kb.dtype == torch.int32 and kb.shape == (bwd[1].shape[0], 5)
+    assert torch.equal(kb, cc.pack_bf16_pairs(kf, half_up=half_up))
+    pb = cc.composite_bwd_plain(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+    ku, pu = cc.unpack_bf16_pairs(kb), cc.unpack_bf16_pairs(pb)
+    assert float(pu.abs().max()) > 0
+    for i in range(9):
+        assert_norm_tiers(ku[:, i], pu[:, i], f"pair {i}")
+    n = args[2].shape[0]
+    kr = cc.reduce_pair_grads(kb, args[1], args[0], n)
+    pr = cc.reduce_pair_grads(pb, args[1], args[0], n)
+    for i in range(9):
+        assert_norm_tiers(kr[:, i], pr[:, i], f"per-gaussian {i}")
+    for cull in (True, False):
+        table, _ = cc.composite_bwd_counts(*bwd, cull=cull, grad_dtype="bfloat16",
+                                           grad_reduce=reduce)
+        assert torch.equal(table, kb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sort", "gather"])
+def test_bwd_bf16_path_is_deterministic(reduce):
+    dev = _cuda()
+    args = _inputs(_scene(300, 9, True), 80, 64, dev)
+    bwd = _bwd_inputs(args, seed=3)
+    runs = [cc.composite_grads(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_autograd_path_launches_the_training_kernels():
+    _autograd_path_launches("float32", "sort")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sort", "gather"])
+def test_autograd_path_launches_the_training_kernels_bf16(reduce):
+    _autograd_path_launches("bfloat16", reduce)
+
+
+def _autograd_path_launches(grad_dtype, grad_reduce):
+    """render() with gradients launches composite_fwd and composite_bwd
+    once each (the bf16 instance at bfloat16), without them composite_infer
+    only; the card's gradients within the tiers of the CPU's."""
     dev = _cuda()
     gs = _scene(300, 7)
     s = RasterizeSettings(max_pairs=1 << 15)
     counts = lambda: (cc.composite_infer.launches, cc.composite_fwd.launches,  # noqa: E731
-                      cc.composite_bwd.launches)
+                      cc.composite_bwd.launches, cc.composite_bwd.launches_bf16)
+    bf16 = int(grad_dtype == "bfloat16")
     grads = {}
     for device in (dev, torch.device("cpu")):
         leaves = [torch.from_numpy(g).to(device).requires_grad_(True) for g in gs]
         before = counts()
         out = render(_camera(80, 48, device), *leaves, 3, torch.zeros(3, device=device),
-                     RasterizeSettings(max_pairs=1 << 15, backend="kernel"))
+                     RasterizeSettings(max_pairs=1 << 15, backend="kernel",
+                                       grad_dtype=grad_dtype, grad_reduce=grad_reduce))
         (out["render"] * out["render"]).sum().backward()
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert counts() == (before[0], before[1] + 1, before[2] + 1)
+            assert counts() == (before[0], before[1] + 1, before[2] + 1, before[3] + bf16)
         grads[device.type] = [x.grad for x in leaves]
     for name, a, b in zip(("means3d", "scales", "quats", "opacities", "shs"),
                           grads["cuda"], grads["cpu"]):
@@ -404,7 +471,7 @@ def test_autograd_path_launches_the_training_kernels():
     with torch.no_grad():
         render(_camera(80, 48, dev), *(torch.from_numpy(g).to(dev) for g in gs), 3,
                torch.zeros(3, device=dev), s)
-    assert counts() == (before[0] + 1, before[1], before[2])
+    assert counts() == (before[0] + 1, before[1], before[2], before[3])
 
 
 @pytest.mark.cuda

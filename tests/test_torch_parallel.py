@@ -494,6 +494,56 @@ def test_composite_tiles_pixel_origin_matches_gsjax():
     assert all(torch.equal(a, b) for a, b in zip(plain, (tc, tT, tcap)))
 
 
+@pytest.mark.parametrize("grad", [("float32", "sort"), ("bfloat16", "sort"),
+                                  ("bfloat16", "gather")],
+                         ids=["float32", "bfloat16-sort", "bfloat16-gather"])
+def test_strip_blend_honours_grad_dtype(grad):
+    """The sharded path's strip blend (``shard.blend_strip``) through the
+    kernel backend (its plain versions on the CPU) hands ``grad_dtype`` and
+    ``grad_reduce`` to the backward: its gradients equal, bit for bit,
+    those of ``composite`` called with them on the strip's inputs, and the
+    bf16 ones differ from the float32 ones."""
+    from conftest import make_test_camera, make_test_gaussians
+    from gsjax_torch.ops import RasterizeSettings
+    from gsjax_torch.ops.composite import assemble_image
+    from gsjax_torch.ops.cuda_composite import composite
+    from gsjax_torch.ops.projection import preprocess
+    from gsjax_torch.parallel.shard import _kernel_blend_inputs, bin_strip, blend_strip
+    from test_torch_render import t_camera
+
+    grad_dtype, grad_reduce = grad
+    gs = make_test_gaussians(150, np.random.default_rng(12))
+    with torch.no_grad():
+        sp = preprocess(*map(torch.from_numpy, gs), t_camera(make_test_camera(64, 64)), 3)
+    y0, strips_y, tiles_x = 2, 2, 4
+    wimg = torch.from_numpy(np.random.default_rng(13).normal(size=(32, 64, 3)).astype(np.float32))
+
+    def grads(dtype, reduce, direct):
+        leaves = [x.clone().requires_grad_(True) for x in (sp.means2d, sp.conics, sp.colors,
+                                                           sp.opacities)]
+        alls = sp._replace(means2d=leaves[0], conics=leaves[1], colors=leaves[2],
+                           opacities=leaves[3])
+        settings = RasterizeSettings(max_pairs=1 << 14, expansion="compact", backend="kernel",
+                                     grad_dtype=dtype, grad_reduce=reduce)
+        bins = bin_strip(alls, y0, strips_y, tiles_x, settings, 2)
+        if direct:
+            tc, tT = composite(*_kernel_blend_inputs(alls, y0), bins.tile_start,
+                               bins.pair_gauss, tiles_x, strips_y, dtype, reduce)
+            img, _ = assemble_image(tc, tT, torch.zeros(3), tiles_x, strips_y, 64, 32)
+        else:
+            img, _, _ = blend_strip(alls, bins, y0, strips_y, tiles_x, 64, torch.zeros(3),
+                                    settings)
+        return torch.autograd.grad((img * wimg).sum(), leaves)
+
+    got = grads(grad_dtype, grad_reduce, direct=False)
+    want = grads(grad_dtype, grad_reduce, direct=True)
+    f32 = grads("float32", "sort", direct=True)
+    for name, g, w, f in zip(("means2d", "conics", "colors", "opacities"), got, want, f32):
+        assert float(w.abs().max()) > 0, name
+        assert torch.equal(g, w), name
+        assert torch.equal(g, f) == (grad_dtype == "float32"), name
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
