@@ -27,17 +27,27 @@ Phases, in order; any failure exits nonzero:
    runs bit-identical, and the check instances' tables the training
    instance's;
 4. the render path: the 1M-gaussian 1080p scene rendered through
-   ``make_render_fn`` for 40 frames from 4 camera poses, launch counts
-   reset just before and read just after; then per-phase and per-kernel
-   times with CUDA events;
-5. the training path: 48 steps of ``make_train_step`` on the same scene at
-   full width (targets: the scene with its base color shifted, rendered
-   from the 4 poses), in turns at ``grad_dtype`` float32 and bfloat16
-   (gsjax's bench and training default), launch counts reset just before
-   and read just after; each one's step times and per-phase times (its
-   backward kernel and reduction among them) with CUDA events; then
-   ``profiling.trace`` (``torch.profiler``) around 4 more float32 steps: the
-   top kernels by device time and the device's busy share of the window;
+   ``make_render_fn`` (its captured CUDA graph) for 40 frames from 4
+   camera poses, launch counts reset just before and read just after; then
+   per-phase and per-kernel times with CUDA events, the frame's deepest
+   tile, and the graphed frame against the eager one (``eager=True``), bit
+   for bit at the 4 poses, then 40 frames of each in turns;
+5. the training path: 48 steps of ``make_train_step`` (captured graphs)
+   on the same scene at full width (targets: the scene with its base color
+   shifted, rendered from the 4 poses), in turns at ``grad_dtype`` float32
+   and bfloat16 (gsjax's bench and training default), launch counts reset
+   just before and read just after; each one's step times and per-phase
+   times (its backward kernel and reduction among them) with CUDA events;
+   then ``profiling.trace`` (``torch.profiler``) around 4 more float32
+   steps: the top kernels by device time and the device's busy share of
+   the window; then the graphs against the eager path from one state
+   (restored in place), the eager path first twice: 8 steps at each
+   ``grad_dtype`` and two chained dispatches of 25 steps, parameters,
+   moments, counts, statistics and metrics bit for bit (or as far as the
+   eager path agrees with itself); 24 graphed and 24 eager bfloat16 steps
+   in turns, the chained dispatches in turns, a trace of 4 steps of each,
+   and one replayed dispatch under ``torch.cuda.set_sync_debug_mode
+   ("error")``;
 6. one train step through the kernel backend against one through the
    differentiable scan backend on a 20,000-gaussian 256x256 scene;
 7. the offline-render CLI (``gsjax_torch.render``) on a small synthetic
@@ -55,7 +65,8 @@ Phases, in order; any failure exits nonzero:
    gather,sort,phases,bwdsplit,bwdcull,fwdcull,vpu,vpux --out`` (the probe path: its
    launch counts come from its last line);
 9. ``python -m gsjax_torch.bench --roofline``: a positive frame rate, a
-   passed cross-check and no dropped pair;
+   passed cross-check (its pixels beyond 5e-4 counted and bounded) and no
+   dropped pair;
 10. a training run as a user runs it (logged as phase 11), each step
     a subprocess:
     ``python -m gsjax_torch.synthetic_scene`` writes the 250,000-gaussian,
@@ -75,7 +86,9 @@ Phases, in order; any failure exits nonzero:
     instance each time, since the trainer's settings ask for
     ``grad_dtype="bfloat16"`` as gsjax's — and ``composite_infer`` once
     per evaluated view (each run's counts are reset at its start and
-    printed on its last line). It prints it/s, the wall time, the growth
+    printed on its last line), and every step ran through a captured CUDA
+    graph (the CLI's ``step_paths``: replays, or a new graph's warm-up; no
+    eager step). It prints it/s, the wall time, the growth
     pause and the peak memory. Its runs pass ``--disable_viewer``;
 11. the serving surfaces (logged as phase 12), on the trained model of the
     run before and on the 1M-gaussian bench scene: LPIPS with the
@@ -312,6 +325,9 @@ BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
 TRAIN_STEPS = 48  # in turns at grad_dtype float32 and bfloat16: 6 per pose each
 TRACE_STEPS = 4
+GRAPH_CHECK_STEPS = 8  # graph against eager, from one state, at each grad_dtype
+CHAIN_STEPS = 25  # gsjax's steps_per_dispatch
+TURN_ROUNDS, TURN_BLOCK = 4, 6  # graphed and eager steps in turns: 24 each
 POSES = [(0.0, (0.0, 0.0, 0.0)), (0.01, (0.02, 0.0, 0.0)),
          (-0.01, (-0.02, 0.01, 0.0)), (0.0, (0.0, -0.02, 0.0))]
 
@@ -778,7 +794,55 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         f"{n_live} exps -> {bound:.4f} ms ({by})")
     entries[2].update(ms_bf16=bwd_bf16_ms, bound_ms_bf16=bound, bound_by_bf16=by,
                       reduce_ms=reduce_ms, reduce_ms_bf16=reduce_bf16_ms)
+    # gsjax's n_contrib is exact below ~2^16 pairs a tile: this frame's deepest
+    deepest = deepest_tile(b.tile_start)
+    log(f"  deepest tile: {deepest} pairs")
+    for e in entries:
+        e["deepest_tile_pairs_bench1080"] = deepest
+    graph_frames(state, rcams, render_fn, TrainConfig(settings=settings), bg)
     return entries, state, rcams, settings, b.tile_start
+
+
+def deepest_tile(tile_start):
+    """The longest range of ``tile_start``: the most pairs a tile holds."""
+    return int((tile_start[1:] - tile_start[:-1]).max())
+
+
+def graph_frames(state, rcams, render_fn, cfg, bg):
+    """Phase 4's graph part: the captured frame of ``render_fn`` against
+    the eager frame, bit for bit at each pose, then MAIN_FRAMES frames of
+    each in turns (CUDA events; the host's time to enqueue a frame)."""
+    import torch
+
+    from gsjax_torch.train.step import make_render_fn
+
+    eager_fn = make_render_fn(cfg, with_stats=True, eager=True)
+    for i, rc in enumerate(rcams):
+        (gi, gd), (ei, ed) = render_fn(state, rc, bg), eager_fn(state, rc, bg)
+        if not (torch.equal(gi, ei) and torch.equal(gd, ed)):
+            raise AssertionError(f"pose {i}: the graphed frame differs from the eager one "
+                                 f"(max |diff| {float((gi - ei).abs().max()):.3e})")
+    torch.cuda.synchronize()
+    times = {"graph": ([], []), "eager": ([], [])}
+    for i in range(2 * MAIN_FRAMES):
+        name, fn = (("graph", render_fn), ("eager", eager_fn))[i % 2]
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn(state, rcams[(i // 2) % len(rcams)], bg)
+        z.record()
+        times[name][1].append(1e3 * (time.perf_counter() - t0))
+        times[name][0].append((a, z))
+    torch.cuda.synchronize()
+    parts = []
+    for name, (evs, host) in times.items():
+        ms = [a.elapsed_time(z) for a, z in evs]
+        parts.append(f"{name} median {statistics.median(ms):.3f}, p75 "
+                     f"{statistics.quantiles(ms, n=4)[2]:.3f}, host enqueue "
+                     f"{statistics.median(host):.3f}")
+    log(f"  graphed frame = eager frame bit for bit at {len(rcams)} poses; in turns, "
+        f"{MAIN_FRAMES} frames each, ms (CUDA events): " + "; ".join(parts)
+        + f"; captures {render_fn.graphs.captures}")
 
 
 def entry(name, replaces, launches, err, ms, plain_ms, bytes_moved, ops, library_ms=None,
@@ -913,7 +977,7 @@ def train_path(device, state, rcams, settings):
     images = shifted_targets(state, rcams, cfg, device)
     tx = make_optimizer(OptimizationParams(), 3.0)
     opt = tx.init(state.params)
-    cams = stack_render_cameras(rcams)
+    cams = stack_render_cameras(rcams, device)
     steps = {dt: make_train_step(tx, cams, images, c) for dt, c in cfgs.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -989,7 +1053,127 @@ def train_path(device, state, rcams, settings):
             f"{summary['window_ms']:.3f} ms window, busy share {summary['busy_share']:.4f}")
         for name, ms, calls in summary["top"]:
             log(f"    {ms:9.3f} ms  {calls:6d} calls  {name[:100]}")
+    graph_steps(state, opt, tx, cams, images, cfgs, steps)
     return launches
+
+
+def graph_steps(state, opt, tx, cams, images, cfgs, steps):
+    """Phase 5's graph part: the captured step and chained dispatch against
+    the eager path from one state (restored in place between runs), the
+    eager path first against itself; then graphed and eager bf16 steps in
+    turns, their chained dispatches in turns, a trace of 4 steps of each,
+    and one replayed dispatch under ``torch.cuda.set_sync_debug_mode
+    ("error")``."""
+    import torch
+
+    from gsjax_torch.train.step import (
+        make_train_step, make_train_step_chained, restore, snapshot,
+        snapshot_differences as differing,
+    )
+    from gsjax_torch.utils.profiling import device_summary, trace
+
+    eager = {dt: make_train_step(tx, cams, images, c, eager=True) for dt, c in cfgs.items()}
+    start = snapshot(state, opt)
+    n_cam = len(cams)
+
+    def run(fn, calls):
+        restore(state, opt, start)
+        ms = [fn(state, opt, *a)[2] for a in calls]
+        torch.cuda.synchronize()
+        return ms, snapshot(state, opt)
+
+    def agree(name, got, want, unstable):
+        (gm, g), (em, e) = got, want
+        diff = [k for k in differing(g, e) if k not in unstable]
+        mdiff = [k for k in gm[-1] if not torch.equal(gm[-1][k], em[-1][k])]
+        if diff or (mdiff and not unstable):
+            raise AssertionError(f"{name}: the graph differs from the eager path in {diff}, "
+                                 f"metrics {mdiff}")
+        how = "bit for bit" if not unstable else f"except {unstable}, where eager differs too"
+        log(f"  {name}: graph = eager {how} (parameters, Adam's moments and counts, the "
+            f"statistics, the metrics)")
+
+    t0 = time.perf_counter()
+    calls = [(i % n_cam,) for i in range(GRAPH_CHECK_STEPS)]
+    unstable = differing(run(eager["bfloat16"], calls)[1], run(eager["bfloat16"], calls)[1])
+    log(f"  eager twice from one state, {GRAPH_CHECK_STEPS} bfloat16 steps: "
+        + ("bit for bit (deterministic)" if not unstable else f"differ in {unstable}"))
+    for dt in cfgs:
+        agree(f"{GRAPH_CHECK_STEPS} {dt} steps", run(steps[dt], calls), run(eager[dt], calls),
+              unstable)
+    chained = {e: make_train_step_chained(tx, cams, images, cfgs["bfloat16"], CHAIN_STEPS,
+                                          eager=e) for e in (False, True)}
+    ccalls = [([(i + j) % n_cam for i in range(CHAIN_STEPS)],) for j in range(2)]
+    agree(f"two chained dispatches of {CHAIN_STEPS} bfloat16 steps (the graph's first its "
+          f"warm-up, the second a replay)", run(chained[False], ccalls),
+          run(chained[True], ccalls), unstable)
+    g_step = next(iter(steps["bfloat16"].graphs.entries.values()))[1][3]
+    g_chain = next(iter(chained[False].graphs.entries.values()))[1][3]
+    log(f"  graph checks: {time.perf_counter() - t0:.1f} s; capture of a step "
+        f"{g_step.capture_s:.3f} s, of a {CHAIN_STEPS}-step dispatch {g_chain.capture_s:.3f} s "
+        f"(host, with the instantiation)")
+
+    # in turns: blocks of TURN_BLOCK graphed and eager bfloat16 steps
+    restore(state, opt, start)
+    fns = {"graph": steps["bfloat16"], "eager": eager["bfloat16"]}
+    ms = {k: [] for k in fns}
+    wall = {k: [] for k in fns}
+    for r in range(TURN_ROUNDS):
+        for name, fn in fns.items():
+            ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(TURN_BLOCK)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i, (a, z) in enumerate(ev):
+                a.record()
+                fn(state, opt, (r + i) % n_cam)
+                z.record()
+            torch.cuda.synchronize()
+            wall[name].append(1e3 * (time.perf_counter() - t) / TURN_BLOCK)
+            ms[name] += [a.elapsed_time(z) for a, z in ev]
+    for name in fns:
+        log(f"  {name} bfloat16 step, in turns ({TURN_ROUNDS} rounds of {TURN_BLOCK}), ms "
+            f"(CUDA events, n={len(ms[name])}): median {statistics.median(ms[name]):.3f}, p75 "
+            f"{statistics.quantiles(ms[name], n=4)[2]:.3f}, min {min(ms[name]):.3f}; host wall "
+            f"per step {statistics.median(wall[name]):.3f}")
+    per_step = {k: [] for k in chained}
+    for r in range(2):
+        for e, fn in chained.items():
+            torch.cuda.synchronize()
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(state, opt, [(r + i) % n_cam for i in range(CHAIN_STEPS)])
+            z.record()
+            torch.cuda.synchronize()
+            per_step[e].append(a.elapsed_time(z) / CHAIN_STEPS)
+    log(f"  chained dispatch of {CHAIN_STEPS} bfloat16 steps, in turns, ms a step: graph "
+        f"{per_step[False]}, eager {per_step[True]}")
+
+    for name, fn in fns.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                for i in range(TRACE_STEPS):
+                    fn(state, opt, i % n_cam)
+                torch.cuda.synchronize()
+            summary = device_summary(prof)
+        if summary is None:
+            log(f"  {name} trace: device time not measured (torch.profiler recorded none)")
+        else:
+            log(f"  {name} bfloat16 trace of {TRACE_STEPS} steps: device busy "
+                f"{summary['busy_ms']:.3f} ms of a {summary['window_ms']:.3f} ms window, "
+                f"share {summary['busy_share']:.4f}")
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chained[False](state, opt, [i % n_cam for i in range(CHAIN_STEPS)])
+        steps["bfloat16"](state, opt, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  a replayed chained dispatch and step under set_sync_debug_mode('error'): no host "
+        f"sync; captures: step {steps['bfloat16'].graphs.captures}, chained "
+        f"{chained[False].graphs.captures}")
 
 
 def phase_scan_vs_kernel(device, n=20_000, capacity=32_768, size=256):
@@ -1210,14 +1394,18 @@ def phase_probes():
 
 def phase_bench():
     """gsjax_torch.bench --roofline: one JSON line with a positive frame
-    rate, a passed cross-check, no dropped pair, a roofline fraction that
-    a card can reach and the probes' ceilings."""
+    rate, a passed cross-check (its pixels beyond 5e-4 counted and
+    bounded), no dropped pair, a roofline fraction that a card can reach
+    and the probes' ceilings."""
+    from gsjax_torch.bench import XCHECK_BEYOND_MAX
+
     result = json.loads(run_module(10, ["gsjax_torch.bench", "--roofline"])[-1])
     ex = result["extra"]
     checks = {
         "value > 0": (result["value"] or 0) > 0,
         "cross-check passed": isinstance(ex["backend_xcheck_max_diff"], float)
-        and ex["backend_xcheck_max_diff"] <= MAX_TOL,
+        and ex["backend_xcheck_max_diff"] <= MAX_TOL
+        and max(ex["backend_xcheck_beyond_5e-4"].values()) <= XCHECK_BEYOND_MAX,
         "num_dropped == 0": ex["num_dropped"] == 0,
         "0 < roofline_frac <= 1": 0 < ex["roofline_frac"] <= 1,
         "roofline_ref from the probes": isinstance(ex["roofline_ref"], dict),
@@ -1226,7 +1414,8 @@ def phase_bench():
     if failed:
         raise AssertionError(f"bench: {failed}")
     log(f"  bench: {result['value']} frames/s, fwd+bwd {ex['fwd_bwd_frames_per_s']}, train "
-        f"{ex['train_iters_per_s']} it/s, cross-check {ex['backend_xcheck_max_diff']}")
+        f"{ex['train_iters_per_s']} it/s, cross-check {ex['backend_xcheck_max_diff']}, pixels "
+        f"beyond 5e-4 {ex['backend_xcheck_beyond_5e-4']} (at most {XCHECK_BEYOND_MAX})")
 
 
 def _train_log(model):
@@ -1309,7 +1498,14 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
                 device != "cuda" or done["launches"] == want,
             "the backward's bf16 instance every step (grad_dtype bfloat16)":
                 device != "cuda" or done["bwd_launches_bf16"] == iterations,
+            "every step through a captured graph (replays, or a new graph's warm-up)":
+                device != "cuda" or (done["step_paths"]["eager"] == 0
+                                     and done["step_paths"]["graph"] > 0
+                                     and sum(done["step_paths"].values()) == iterations),
         }
+        log(f"  steps by path: {done['step_paths']} (graph: replays; capture: a new graph's "
+            f"warm-up, run eagerly on the capture stream); graphs captured "
+            f"{done['graph_captures']}")
 
         # resume from the checkpoint for `resume` iterations
         done2, records2 = _train_run(phase, scene, model2, device, [
@@ -1323,7 +1519,8 @@ def phase_training_run(device="cuda", width=1296, height=840, scene_args=(),
             f"{[e['test']['psnr'] for e in evals2]}, launches {done2['launches']} (want {want2})")
         checks["the resumed run evaluated"] = len(evals2) == 1
         checks["resumed launches"] = device != "cuda" or (
-            done2["launches"] == want2 and done2["bwd_launches_bf16"] == resume)
+            done2["launches"] == want2 and done2["bwd_launches_bf16"] == resume
+            and done2["step_paths"]["eager"] == 0)
 
         # the snapshot through the render and metrics CLIs
         out = run_module(phase, ["gsjax_torch.render", "-m", model, "--skip_train",
@@ -1747,13 +1944,13 @@ def grad_chain(tx, mesh, cams, images, cfg, state0, cam):
             return out
 
         opt = tx.init(state.params)
-        adam_step = opt.step
+        adam_update = opt.update
 
-        def step_keeping_grads(*a, **k):
+        def update_keeping_grads(*a, **k):
             got["grads"] = {n: v.grad.detach().clone() for n, v in state.params.items()}
-            return adam_step(*a, **k)
+            return adam_update(*a, **k)
 
-        opt.step = step_keeping_grads
+        opt.update = update_keeping_grads
         module.composite = wrapped
         try:
             step(state, opt, cam_arg)
@@ -1763,7 +1960,9 @@ def grad_chain(tx, mesh, cams, images, cfg, state0, cam):
 
     sharded = run(shard, make_sharded_train_step(tx, mesh, cams, images, cfg),
                   shard_gaussian_state(state0, mesh), [cam])
-    single = run(rasterize, make_train_step(tx, cams, images, cfg), _clone_state(state0), cam)
+    # eager: the hooks above record tensors as the step runs
+    single = run(rasterize, make_train_step(tx, cams, images, cfg, eager=True),
+                 _clone_state(state0), cam)
     report = {f"splat {f}": _bits(a, b) for f, a, b in zip(fields, sharded["in"], single["in"])}
     report["tile colors"] = _bits(sharded["out"], single["out"])
     report["d loss / d tile colors"] = _bits(sharded["d_out"], single["d_out"])
@@ -1813,7 +2012,7 @@ def sharded_rank(spec):
     cfg = TrainConfig(settings=settings, extent=3.0)
     images = shifted_targets(state0, rcams, cfg, dev)
     tx = make_optimizer(OptimizationParams(), 3.0)
-    cams = stack_render_cameras(rcams)
+    cams = stack_render_cameras(rcams, dev)
     bg = torch.zeros(3, device=dev)
     out = {"rank": rank, "world": world, "backend": dist.get_backend()}
     main = rank == 0
@@ -1854,7 +2053,9 @@ def sharded_rank(spec):
         out["render_dropped"] = [int(f[2]) for f, _ in frames]
         del local
         if main:
-            single = make_render_fn(cfg, with_stats=True)
+            # the single-device reference runs eager: strips_on_one_device
+            # rebinds train.step.render, which a captured graph would not see
+            single = make_render_fn(cfg, with_stats=True, eager=True)
             errs, out["grid_whole_frame"] = [], []
             for (img, _, _), rc in zip((f for f, _ in frames), rcams):
                 whole_frame = single(state0, rc, bg)[0]
@@ -1878,7 +2079,8 @@ def sharded_rank(spec):
         frames = [render(local, rc, bg) for rc in rcams]
         del local
         if main:
-            single = make_render_fn(TrainConfig(settings=compact, extent=3.0), with_stats=True)
+            single = make_render_fn(TrainConfig(settings=compact, extent=3.0), with_stats=True,
+                                    eager=True)
             out["compact_whole_frame"] = [_frame_diff(img, single(state0, rc, bg)[0])
                                           for (img, _, _), rc in zip(frames, rcams)]
             with strips_on_one_device(world):
@@ -1914,7 +2116,7 @@ def sharded_rank(spec):
     if main:
         st = _clone_state(state0)
         o1 = tx.init(st.params)
-        step1 = make_train_step(tx, cams, images, cfg)
+        step1 = make_train_step(tx, cams, images, cfg, eager=True)
         for i, c in enumerate(order):
             with strips_on_one_device(world):
                 st, o1, m1 = step1(st, o1, c)
@@ -1966,7 +2168,8 @@ def sharded_rank(spec):
             singles = []
             for c in pair:
                 st = _clone_state(state0)
-                _, _, m1 = make_train_step(tx, cams, images, cfg)(st, tx.init(st.params), c)
+                _, _, m1 = make_train_step(tx, cams, images, cfg, eager=True)(
+                    st, tx.init(st.params), c)
                 singles.append(float(m1["loss"]))
             want = sum(singles) / len(singles)
             out["data_parallel_loss_rel"] = _rel(float(m["loss"]), want)
@@ -2263,7 +2466,8 @@ def phase_scaled_model(device, run, target=SCALE_TARGET, w=1920, h=1080,
         err = max(compare(f"scaled {w}x{h} tile_colors", kc, pc),
                   compare(f"scaled {w}x{h} tile_T", kT, pT))
     nums = {"n": meta["n_out"], "k": meta["k"], "max_pairs": settings.max_pairs,
-            "pairs": int(b.num_pairs), "mt": settings.max_tiles_per_gauss,
+            "pairs": int(b.num_pairs), "deepest_tile_pairs": deepest_tile(b.tile_start),
+            "mt": settings.max_tiles_per_gauss,
             "expansion": settings.expansion, "frame_ms": frames, "peak_memory_gib": peak,
             "phases_ms": phases}
     log(f"  14b {meta['n_out']} gaussians (x{meta['k']}): {json.dumps(nums)}; composite_infer "
@@ -2563,13 +2767,13 @@ def phase_last_modules(device, run, workdir):
     log("phase 14: the last modules (native kNN, scale_model, the quality A/Bs, "
         "multichip_split)")
     sub("14a", phase_knn, run["scene"])
-    launches, err, _ = sub("14b", phase_scaled_model, device, run)
+    launches, err, nums = sub("14b", phase_scaled_model, device, run)
     done = sub("14c", phase_drop_ab, device, run, workdir)
     sub("14d", phase_densify_ab, device, workdir)
     sub("14e", phase_split, device, workdir)
     sub("14f", phase_adam_card, device)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s ({times})")
-    return {"scaled": (launches, err), "ab": done}
+    return {"scaled": (launches, err), "ab": done, "deepest_tile": nums["deepest_tile_pairs"]}
 
 
 def main() -> int:
@@ -2643,6 +2847,8 @@ def main() -> int:
     # training kernels in the drop A/B's two arms
     entries[0]["launches_scaled"], entries[0]["max_abs_err_scaled"] = last["scaled"]
     entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], last["scaled"][1])
+    for e in entries[:3]:
+        e["deepest_tile_pairs_scaled1m"] = last["deepest_tile"]
     for e in entries[1:3]:
         e["launches_drop_ab"] = sum(d["launches"][e["name"]] for d in last["ab"])
 

@@ -24,8 +24,12 @@ exit code is nonzero when a run failed.
 With ``--frames N`` it runs ``gsjax_torch/frame_times.py`` of this
 checkout in each tree instead, A, B, B, A twice: N render frames of the
 bench scene each, so that the frame median, which chip_smoke's 40 frames
-leave to the host's noise, is compared on its own. One JSON line per run
-(the tree, exit code and the script's line), then the ``done`` line.
+leave to the host's noise, is compared on its own. ``--steps N`` does the
+same with ``gsjax_torch/step_times.py``: N float32 train steps, with one
+step closure (``--mode alone``) or two in turns (``--mode turns``, phase
+5's order). One JSON line per run (the tree, exit code and the script's
+line), then the ``done`` line. ``--b TREE`` puts another tree in B's place
+(two older trees against each other).
 
 Needs a card, as chip_smoke.py does; the runs are sequential, so one
 card serves them all. Imports neither torch nor JAX.
@@ -45,6 +49,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_TIMEOUT_S = 1200  # chip_smoke's own limit
 ORDER = "ABBA"
 FRAMES_SCRIPT = os.path.join(HERE, "gsjax_torch", "frame_times.py")
+STEPS_SCRIPT = os.path.join(HERE, "gsjax_torch", "step_times.py")
 
 _NUM = r"([0-9.]+)"
 PATTERNS = {
@@ -139,9 +144,11 @@ def run_tree(root: str, log_path: str) -> dict:
     return {"rc": rc, "seconds": time.perf_counter() - t0, **parse_log(text)}
 
 
-def run_frames(root: str, frames: int) -> dict:
-    """:data:`FRAMES_SCRIPT` with the tree ``root`` as working directory."""
-    res = subprocess.run([sys.executable, "-P", FRAMES_SCRIPT, str(frames)], cwd=root,
+def run_frames(root: str, frames: int, script: str = "", *args) -> dict:
+    """``script`` (default :data:`FRAMES_SCRIPT`) with the tree ``root`` as
+    working directory."""
+    res = subprocess.run([sys.executable, "-P", script or FRAMES_SCRIPT, str(frames), *args],
+                         cwd=root,
                          capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
     lines = res.stdout.strip().splitlines()
     rec = {"rc": res.returncode}
@@ -159,15 +166,25 @@ def main(argv=None) -> int:
                     help="directory for each run's output")
     ap.add_argument("--frames", type=int, default=0,
                     help="time N render frames in each tree instead of chip_smoke.py")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="time N train steps in each tree instead of chip_smoke.py")
+    ap.add_argument("--mode", choices=("alone", "turns"), default="alone",
+                    help="--steps: one step closure, or two in turns")
+    ap.add_argument("--b", default=HERE, help="root of the tree in B's place")
     args = ap.parse_args(argv)
-    if not os.path.isfile(os.path.join(args.other, "chip_smoke.py")):
-        print(f"ab_smoke: no chip_smoke.py in {args.other}", file=sys.stderr)
-        return 2
-    roots = {"A": os.path.abspath(args.other), "B": HERE}
+    roots = {"A": os.path.abspath(args.other), "B": os.path.abspath(args.b)}
+    for root in roots.values():
+        if not os.path.isfile(os.path.join(root, "chip_smoke.py")):
+            print(f"ab_smoke: no chip_smoke.py in {root}", file=sys.stderr)
+            return 2
     failed = []
-    for i, tree in enumerate(ORDER * 2 if args.frames else ORDER):
+    short = args.frames or args.steps
+    for i, tree in enumerate(ORDER * 2 if short else ORDER):
         if args.frames:
             rec = {"root": roots[tree], **run_frames(roots[tree], args.frames)}
+        elif args.steps:
+            rec = {"root": roots[tree], **run_frames(roots[tree], args.steps, STEPS_SCRIPT,
+                                                     args.mode)}
         else:
             os.makedirs(args.logs, exist_ok=True)
             log_path = os.path.join(args.logs, f"{i}_{tree}.log")

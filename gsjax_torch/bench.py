@@ -62,6 +62,11 @@ import time
 T0 = time.time()
 N_GAUSS, CAPACITY, WIDTH, HEIGHT = 1_000_000, 1 << 20, 1920, 1080
 BASELINE_FPS = 30.0
+# the cross-check's 512x512 frame: pixels whose image or final T may be off
+# by more than 5e-4 between the kernel and scan backends. Measured on an
+# NVIDIA H100 80GB HBM3 (700 W): 0 of 262,144 for both (max |diff| 3e-7);
+# gsjax's p99.9 tier alone would let 262 through
+XCHECK_BEYOND_MAX = 4
 
 
 def _mark(msg):
@@ -86,7 +91,11 @@ def backend_cross_check(state, rcam, bg):
     differentiable forward (``composite_fwd``), and each parameter's
     gradient within 5e-3 x max(max |scan gradient|, 1). On CUDA tensors the
     kernel backend is the CUDA kernels; on CPU tensors, their plain
-    versions. Returns max(image difference, inference difference)."""
+    versions. gsjax's 6e-3 lets a regression on up to 0.1% of the pixels
+    through, so the port also counts the pixels whose image (any channel)
+    or final T is off by more than 5e-4 and bounds each count by
+    :data:`XCHECK_BEYOND_MAX`. Returns ``(max(image difference, inference
+    difference), {"img": count, "T": count})``."""
     import torch
 
     from gsjax_torch.models.gaussians import activated
@@ -140,6 +149,9 @@ def backend_cross_check(state, rcam, bg):
     assert img_p999 <= 5e-4 and t_p999 <= 5e-4, (
         f"kernel/scan bulk disagreement (not a sparse threshold flip): p99.9 img "
         f"{img_p999:.2e}, T {t_p999:.2e}")
+    beyond = {"img": int((d_img.amax(dim=-1) > 5e-4).sum()), "T": int((d_t > 5e-4).sum())}
+    assert max(beyond.values()) <= XCHECK_BEYOND_MAX, (
+        f"kernel/scan: pixels beyond 5e-4 {beyond}, more than {XCHECK_BEYOND_MAX}")
     assert inf_diff <= 1e-5, (
         f"inference kernel deviates from the training forward: {inf_diff:.2e}")
     for k in k_g:
@@ -147,7 +159,7 @@ def backend_cross_check(state, rcam, bg):
         scale = float(s_g[k].abs().max()) or 1.0
         assert gd <= 5e-3 * max(scale, 1.0), (
             f"kernel/scan gradients disagree on the device: {k} {gd:.2e} (scale {scale:.2e})")
-    return max(img_diff, inf_diff)
+    return max(img_diff, inf_diff), beyond
 
 
 def main(argv=None) -> int:
@@ -220,9 +232,9 @@ def run(args, device) -> int:
         ex["backend_xcheck_max_diff"] = "skipped (--skip_xcheck)"
     else:
         xstate, xcam = toy_scene(20_000, 1 << 15, 512, 512, log_scale=-4.0, device=device)
-        ex["backend_xcheck_max_diff"] = backend_cross_check(
+        ex["backend_xcheck_max_diff"], ex["backend_xcheck_beyond_5e-4"] = backend_cross_check(
             xstate, xcam.to_render_camera(device), bg)
-        _mark("xcheck: ok")
+        _mark(f"xcheck: ok, pixels beyond 5e-4 {ex['backend_xcheck_beyond_5e-4']}")
 
     # ---- stage 3: forward + backward fps, of mean(img ** 2) ----
     _, fwd_bwd = frame_fns(state, rcam, bg, bwd_settings, drops)

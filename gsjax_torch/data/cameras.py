@@ -101,21 +101,59 @@ class RenderCamera:
         return self.height / (2.0 * self.tan_fov_y)
 
 
-def stack_render_cameras(cams, device="cuda"):
-    """Same-resolution cameras as one camera batch for the train step — a
-    list of :class:`RenderCamera` on ``device`` (gsjax stacks them into
-    one batched pytree for in-jit indexing; the port indexes a list)."""
-    rcs = [c.to_render_camera(device) if isinstance(c, Camera) else c for c in cams]
+@dataclasses.dataclass(frozen=True)
+class RenderCameraBatch:
+    """Same-resolution cameras stacked on one device, as gsjax stacks them
+    into one batched pytree: (M, 4, 4) matrices, (M, 3) centres, (M,)
+    half-fov tangents, and the host ints ``width`` and ``height``. Indexing
+    (``batch[i]``, :func:`index_render_camera`) gives camera ``i``."""
+
+    world_view: torch.Tensor  # (M, 4, 4)
+    full_proj: torch.Tensor  # (M, 4, 4)
+    camera_center: torch.Tensor  # (M, 3)
+    tan_fov_x: torch.Tensor  # (M,)
+    tan_fov_y: torch.Tensor  # (M,)
+    width: int
+    height: int
+
+    def __len__(self) -> int:
+        return self.world_view.shape[0]
+
+    def __getitem__(self, i) -> RenderCamera:
+        return index_render_camera(self, i)
+
+
+CAMERA_TENSORS = ("world_view", "full_proj", "camera_center", "tan_fov_x", "tan_fov_y")
+
+
+def stack_render_cameras(cams, device="cuda") -> RenderCameraBatch:
+    """Same-resolution cameras (:class:`Camera` or :class:`RenderCamera`)
+    as one :class:`RenderCameraBatch` on ``device``, for the train step."""
+    dev = resolve_device(device)
+    rcs = [c.to_render_camera(dev) if isinstance(c, Camera) else c for c in cams]
     w, h = rcs[0].width, rcs[0].height
     if any(rc.width != w or rc.height != h for rc in rcs):
         raise ValueError("stack_render_cameras requires uniform resolution")
-    return rcs
+    return RenderCameraBatch(
+        **{k: torch.stack([getattr(rc, k).to(dev) for rc in rcs]) for k in CAMERA_TENSORS},
+        width=w, height=h)
 
 
-def index_render_camera(batch, i) -> RenderCamera:
-    """Select camera ``i`` (an int or a 0-d integer tensor) from a batch of
-    :func:`stack_render_cameras`."""
-    return batch[int(i)]
+def take_row(x: torch.Tensor, i) -> torch.Tensor:
+    """Row ``i`` of ``x``: a view for an int; for a 0-d integer tensor on
+    ``x``'s device a gather there (``index_select``), where ``x[i]`` would
+    read the index back to the host and wait for the card."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1))[0]
+    return x[i]
+
+
+def index_render_camera(batch: RenderCameraBatch, i) -> RenderCamera:
+    """Camera ``i`` of a :class:`RenderCameraBatch` (an int, or a 0-d
+    integer tensor on the batch's device, gathered there as gsjax indexes
+    the stacked pytree inside ``jit``: :func:`take_row`)."""
+    return RenderCamera(**{k: take_row(getattr(batch, k), i) for k in CAMERA_TENSORS},
+                        width=batch.width, height=batch.height)
 
 
 def lookat_camera(eye, target, up, fov_x, width, height,

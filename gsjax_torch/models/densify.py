@@ -54,27 +54,47 @@ class DensifyStats(NamedTuple):
     num_pruned_world: torch.Tensor
 
 
+def _densification_stats(state: GaussianState, grad_means2d_pix, radii, width, height):
+    """The three statistics after one iteration: ``(max_radii2d,
+    xyz_grad_accum, denom)``, new tensors. The NDC scale is filled on the
+    device (a copy from the host would wait for the card), so a captured
+    CUDA graph can hold it."""
+    visible = radii > 0
+    dev = grad_means2d_pix.device
+    scale = torch.stack([torch.full((), v, dtype=torch.float32, device=dev)
+                         for v in (width / 2.0, height / 2.0)])
+    norms = torch.linalg.vector_norm(grad_means2d_pix * scale, dim=-1)
+    return (
+        torch.where(visible, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
+                    state.max_radii2d),
+        state.xyz_grad_accum + torch.where(visible, norms, 0.0),
+        state.denom + visible.to(torch.float32),
+    )
+
+
 def add_densification_stats(state: GaussianState, grad_means2d_pix, radii, width, height):
     """Per-iteration bookkeeping (reference train.py:113-117,
-    gaussian_model.py:405-407).
+    gaussian_model.py:405-407): a new state with new statistics tensors.
 
     ``grad_means2d_pix`` is the loss gradient with respect to pixel-space
     screen positions (the gradient of ``means2d_offset``); it is rescaled
     to NDC units (x by W/2, y by H/2) to match the units the reference CUDA
     backward reports and the 2e-4 threshold is tuned for."""
-    visible = radii > 0
-    scale = torch.tensor([width / 2.0, height / 2.0], dtype=torch.float32,
-                         device=grad_means2d_pix.device)
-    norms = torch.linalg.vector_norm(grad_means2d_pix * scale, dim=-1)
-    return dataclasses.replace(
-        state,
-        max_radii2d=torch.where(
-            visible, torch.maximum(state.max_radii2d, radii.to(torch.float32)),
-            state.max_radii2d,
-        ),
-        xyz_grad_accum=state.xyz_grad_accum + torch.where(visible, norms, 0.0),
-        denom=state.denom + visible.to(torch.float32),
-    )
+    max_radii2d, xyz_grad_accum, denom = _densification_stats(
+        state, grad_means2d_pix, radii, width, height)
+    return dataclasses.replace(state, max_radii2d=max_radii2d,
+                               xyz_grad_accum=xyz_grad_accum, denom=denom)
+
+
+@torch.no_grad()
+def add_densification_stats_(state: GaussianState, grad_means2d_pix, radii, width, height):
+    """:func:`add_densification_stats` written into ``state``'s own
+    statistics tensors, which keep their addresses (a captured train step
+    reads and writes them at replay). Returns ``state``."""
+    new = _densification_stats(state, grad_means2d_pix, radii, width, height)
+    for old, value in zip((state.max_radii2d, state.xyz_grad_accum, state.denom), new):
+        old.copy_(value)
+    return state
 
 
 def _free_slot_table(free):

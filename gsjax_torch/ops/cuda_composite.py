@@ -785,16 +785,30 @@ def reduce_pair_grads(pair_grads, pair_gauss, tile_start, n_gauss: int):
     by construction, and pairs lost to the budget simply have no row.
     Deterministic on every device: a stable sort by gaussian, then
     ``segment_reduce``, which sums each segment in order (no float
-    atomics). Memory O(P * 9 + N * 9)."""
-    num_valid = int(tile_start[-1])
-    if num_valid == 0:
-        return torch.zeros((n_gauss, GRAD_W), dtype=torch.float32, device=pair_grads.device)
-    g, order = torch.sort(pair_gauss[:num_valid].to(torch.int64), stable=True)
-    lengths = torch.bincount(g, minlength=n_gauss)
-    rows = pair_grads[:num_valid][order]
+    atomics). Memory O(P * 9 + N * 9).
+
+    The host never waits for the device here, so the reduction can be
+    captured in a CUDA graph: every one of the P rows is reduced, row ``p
+    >= tile_start[-1]`` into spare segment ``n_gauss + p % n_gauss`` (one
+    spare segment would hold every invalid row, and ``segment_reduce``
+    sums a segment in one thread: 18.7 ms for bench1080's 187,234), and
+    the spare segments are sliced off; the segment lengths come from
+    ``searchsorted`` on the sorted keys. The stable sort keeps each valid
+    segment's rows in the order they had, so the sums are those of the
+    valid rows alone, bit for bit (zero where a gaussian has no valid row,
+    all of them when no row is valid)."""
+    dev = pair_gauss.device
+    n_pairs = pair_gauss.shape[0]
+    n_spare = max(n_gauss, 1)
+    p = torch.arange(n_pairs, device=dev)
+    keys = torch.where(p < tile_start[-1], pair_gauss.to(torch.int64), n_gauss + p % n_spare)
+    g, order = torch.sort(keys, stable=True)
+    bounds = torch.searchsorted(g, torch.arange(n_gauss + n_spare + 1, device=dev))
+    lengths = bounds[1:] - bounds[:-1]
+    rows = pair_grads[order]
     if rows.dtype == torch.int32:
         rows = unpack_bf16_pairs(rows)
-    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0, unsafe=True)
+    return torch.segment_reduce(rows, "sum", lengths=lengths, axis=0, unsafe=True)[:n_gauss]
 
 
 def composite_grads(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,

@@ -24,8 +24,11 @@ the bridge is off.
 On its last line the CLI prints one JSON object with the iterations run,
 the compositing kernels' launch counts over the run (this rank's; with
 ``bwd_launches_bf16``, those of the backward's bf16 instances, which the
-default settings' ``grad_dtype="bfloat16"`` selects on CUDA), its wall
-time and, on CUDA, the peak device memory.
+default settings' ``grad_dtype="bfloat16"`` selects on CUDA), the steps
+each path ran (``step_paths``: replayed CUDA graphs, graph warm-ups, eager;
+see ``train.loop``), the CUDA graphs captured and the host seconds their
+captures took (``graph_captures``: steps, dispatches and renders), its
+wall time and, on CUDA, the peak device memory.
 """
 
 from __future__ import annotations
@@ -104,6 +107,8 @@ def main(argv=None):
     from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.parallel.multihost import is_main_process, maybe_initialize, rank_device
     from gsjax_torch.train.loop import training
+    from gsjax_torch.train.step import STEP_PATHS
+    from gsjax_torch.utils.graphs import CAPTURES
     from gsjax_torch.utils.system import safe_state
 
     device = rank_device(args.device)  # fail before loading anything
@@ -187,6 +192,8 @@ def main(argv=None):
     for k in kernels:
         k.launches = 0
     cc.composite_bwd.launches_bf16 = 0
+    STEP_PATHS.update(graph=0, capture=0, eager=0)
+    CAPTURES.update(count=0, seconds=0.0)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -218,6 +225,8 @@ def main(argv=None):
         "launches": {k.__name__: k.launches for k in kernels},
         # of composite_bwd's launches, those of its bf16 instances (grad_dtype)
         "bwd_launches_bf16": cc.composite_bwd.launches_bf16,
+        "step_paths": dict(STEP_PATHS),
+        "graph_captures": dict(CAPTURES),
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
     }

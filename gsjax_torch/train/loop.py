@@ -14,12 +14,20 @@ from the device once per dispatch. The random keys are gsjax's
 (``utils.prng``): ``PRNGKey(seed)``, split once a dispatch for the step and
 once a densification for the split noise.
 
-gsjax's compile machinery has no counterpart here and is left out, with
-nothing in its place: the background compile of the next capacity bucket
-(``CapacityWarmer``, ``_grown_abstract``, ``_with_fallback``,
-``_warmed_densify``) and the AOT lowering of the step
-(``_attach_lower_images``). Growing capacity or a budget rebuilds the step
-closures, which costs no compile.
+On a card the steps, the chained dispatches and the evaluation renders
+replay CUDA graphs (``utils.graphs``), the counterpart of gsjax's ``jit``:
+a graph is captured at the first call of each (capacity, SH degree,
+settings, resolution bucket, ``apply_update``), as gsjax compiles a
+program, so growing capacity or a budget rebuilds the step closures and
+the SH ramp captures anew. Three cases run eager, each logged: the
+sharded steps (their gloo collectives cannot be captured), every step
+from ``debug_from`` on (autograd's anomaly mode cannot be captured) and
+the scan backend's steps (the backward of its cumprod reads the device).
+``train.step.STEP_PATHS`` counts the steps each path ran. gsjax's
+background compile of the next capacity bucket (``CapacityWarmer``,
+``_grown_abstract``, ``_with_fallback``, ``_warmed_densify``) and the AOT
+lowering of the step (``_attach_lower_images``) have no counterpart: the
+grown capacity's graphs are captured at their first call.
 
 Sharded training (``data_shards`` x ``gauss_shards`` ranks, one process
 each: ``parallel.multihost``) runs ``parallel.shard``'s steps on each rank's
@@ -68,6 +76,7 @@ from gsjax_torch.train.optim import (
 )
 from gsjax_torch.train.scene import Scene
 from gsjax_torch.train.step import (
+    STEP_PATHS,
     TrainConfig,
     make_densify_step,
     make_render_fn,
@@ -435,13 +444,22 @@ def training(
     if multi_res:
         n_chain = 1  # chaining assumes one camera-batch shape
 
+    # the steps run eager from debug_from on: anomaly mode cannot be captured
+    eager = False
+    if mesh is not None and dev.type == "cuda":
+        print("Sharded training: the steps run eager (their gloo collectives cannot be "
+              "captured in a CUDA graph)", flush=True)
+    elif settings.backend == "scan" and dev.type == "cuda":
+        print("Scan backend: the steps run eager (the backward of its cumprod reads the "
+              "device, which a CUDA graph cannot capture)", flush=True)
+
     def build_steps(cfg_now):
         if mesh is not None:
             return (make_sharded_train_step(tx, mesh, cam_batch, images, cfg_now),
                     make_sharded_train_step_chained(tx, mesh, cam_batch, images, cfg_now,
                                                     n_chain) if n_chain > 1 else None)
-        return (make_train_step(tx, cam_batch, images, cfg_now),
-                make_train_step_chained(tx, cam_batch, images, cfg_now, n_chain)
+        return (make_train_step(tx, cam_batch, images, cfg_now, eager=eager),
+                make_train_step_chained(tx, cam_batch, images, cfg_now, n_chain, eager=eager)
                 if n_chain > 1 else None)
 
     step, chained = build_steps(cfg)
@@ -452,7 +470,7 @@ def training(
     def bucket_step(b: int):
         fn = extra_bucket_steps.get(b)
         if fn is None:
-            fn = make_train_step(tx, *bucket_data(b), cfg)
+            fn = make_train_step(tx, *bucket_data(b), cfg, eager=eager)
             extra_bucket_steps[b] = fn
         return fn
 
@@ -526,6 +544,12 @@ def training(
             torch.autograd.set_detect_anomaly(True)
             print(f"[ITER {iteration}] debug mode on (torch.autograd.set_detect_anomaly)",
                   flush=True)
+            if mesh is None and dev.type == "cuda":
+                eager = True
+                step, chained = build_steps(cfg)
+                extra_bucket_steps.clear()
+                print(f"[ITER {iteration}] the steps run eager from here on (anomaly mode "
+                      "cannot be captured in a CUDA graph)", flush=True)
 
         # SH-degree ramp (reference train.py:72-73)
         if iteration % 1000 == 0:
@@ -561,6 +585,8 @@ def training(
             metrics = _read_metrics(metrics)
             loss = metrics["loss"]
             n_stepped = 1
+        if mesh is not None:
+            STEP_PATHS["eager"] += n_stepped
         dt = time.time() - t0
         it_times.extend([dt / n_stepped] * n_stepped)
         iteration += n_stepped - 1

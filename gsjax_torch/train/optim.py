@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from gsjax_torch.models.gaussians import PARAM_KEYS
+from gsjax_torch.utils.graphs import pin_copy_
 from gsjax_torch.utils.schedules import expon_lr_schedule
 
 BETAS = (0.9, 0.999)
@@ -56,7 +57,17 @@ class GaussianAdam(torch.optim.Adam):
     -> lr)) and optax's update (see the module docstring). ``count`` is the
     number of applied steps (gsjax's lr count); each parameter's
     ``state["step"]`` is Adam's own count (optax's
-    ``ScaleByAdamState.count``), a float32 CPU tensor as torch keeps it."""
+    ``ScaleByAdamState.count``), a float32 CPU tensor as torch keeps it.
+
+    A step is two halves. :meth:`advance` is the host's: it moves the
+    counts on and returns the step's row of :data:`ROW_W` float32 values
+    (each group's lr at ``count + 1``, then each group's two bias
+    corrections ``1 - b**count``, taken in float32 on the host, whose
+    ``powf`` is XLA CPU's bit for bit). :meth:`update` is the device's: the
+    moments and parameters from the gradients and a row on the parameters'
+    device, which it reads as tensors, so a captured CUDA graph can replay
+    it with each step's row written into the same buffer. :meth:`step` does
+    both."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr_fns):
         groups = [{"params": [params[k]], "name": k, "lr": float(lr_fns[k](1))}
@@ -71,39 +82,57 @@ class GaussianAdam(torch.optim.Adam):
             group["lr"] = float(self.lr_fns[group["name"]](self.count + 1))
 
     @torch.no_grad()
-    def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        self.set_lrs()
-        b1, b2 = BETAS
-        ps, grads, mus, nus, bc1, bc2, lrs = [], [], [], [], [], [], []
+    def init_state(self):
+        """Give every parameter its Adam state (count 0, zero moments) if it
+        has none: a captured step must find the moments' tensors made."""
         for group in self.param_groups:
             p = group["params"][0]
-            if p.grad is None:
-                continue
             st = self.state[p]
             if not st:
                 st["step"] = torch.zeros((), dtype=torch.float32)
                 st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
                 st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def advance(self, names=PARAM_KEYS) -> list:
+        """The host's half of one step of the groups ``names`` (in
+        :data:`PARAM_KEYS` order): set the lrs, add one to each group's
+        Adam count and to ``count``, and return the row ``[lr of each group,
+        bc1 of each group, bc2 of each group]`` as Python floats holding
+        float32 values."""
+        self.init_state()
+        self.set_lrs()
+        b1, b2 = BETAS
+        lrs, bc1, bc2 = [], [], []
+        for group in self.param_groups:
+            if group["name"] not in names:
+                continue
+            st = self.state[group["params"][0]]
             st["step"] += 1
-            # optax: 1 - decay ** count in float32 (a CPU scalar here: the
-            # host's powf is XLA CPU's, bit for bit, and no device sync)
-            count = st["step"].float().cpu()
+            # optax: 1 - decay ** count in float32 (a CPU scalar: the
+            # host's powf is XLA CPU's, bit for bit)
+            count = st["step"].float()
             bc1.append(float(1 - torch.tensor(b1, dtype=torch.float32) ** count))
             bc2.append(float(1 - torch.tensor(b2, dtype=torch.float32) ** count))
-            ps.append(p)
-            grads.append(p.grad)
-            mus.append(st["exp_avg"])
-            nus.append(st["exp_avg_sq"])
-            lrs.append(group["lr"])
-        if not ps:
-            self.count += 1
-            return loss
-        # every product and sum rounds to float32 once, in optax's order;
-        # the foreach ops divide by a scalar exactly (no reciprocal)
+            lrs.append(float(torch.tensor(group["lr"], dtype=torch.float32)))
+        self.count += 1
+        return lrs + bc1 + bc2
+
+    @torch.no_grad()
+    def update(self, row: torch.Tensor, names=PARAM_KEYS):
+        """The device's half of one step of the groups ``names``: optax's
+        update from each parameter's ``.grad``, in place, with the lrs and
+        bias corrections read from ``row`` (float32, on the parameters'
+        device; :meth:`advance`'s layout). Every product and sum rounds to
+        float32 once, in optax's order; the divisions by the bias
+        corrections are true divisions by 0-d tensors on the device (a CPU
+        scalar would make CUDA's ``div`` multiply by its reciprocal)."""
+        b1, b2 = BETAS
+        ps = [g["params"][0] for g in self.param_groups if g["name"] in names]
+        k = len(ps)
+        lrs, bc1, bc2 = (list(row[i * k:(i + 1) * k].unbind()) for i in range(3))
+        grads = [p.grad for p in ps]
+        mus = [self.state[p]["exp_avg"] for p in ps]
+        nus = [self.state[p]["exp_avg_sq"] for p in ps]
         torch._foreach_mul_(mus, b1)
         torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - b1))
         sq = torch._foreach_mul(grads, grads)
@@ -117,11 +146,28 @@ class GaussianAdam(torch.optim.Adam):
         torch._foreach_div_(upd, den)
         torch._foreach_mul_(upd, lrs)
         torch._foreach_sub_(ps, upd)
-        self.count += 1
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One step of the groups whose parameter has a gradient: the row
+        from :meth:`advance`, carried to the device without a host wait
+        (``utils.graphs.pin_copy_``), then :meth:`update`."""
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        names = tuple(g["name"] for g in self.param_groups if g["params"][0].grad is not None)
+        row = self.advance(names)
+        if names:
+            dev = self.param(names[0]).device
+            self.update(pin_copy_(torch.empty(len(row), device=dev), row), names)
         return loss
 
     def param(self, name: str) -> torch.Tensor:
         return next(g["params"][0] for g in self.param_groups if g["name"] == name)
+
+
+ROW_W = 3 * len(PARAM_KEYS)  # floats of an Adam row: lrs, bc1s, bc2s
 
 
 class GroupAdam:
@@ -192,6 +238,20 @@ def with_adam_moments(opt: GaussianAdam, mu, nu, count=None) -> GaussianAdam:
             "exp_avg": mu[k].detach().to(p.device, torch.float32).clone(),
             "exp_avg_sq": nu[k].detach().to(p.device, torch.float32).clone(),
         }
+    return opt
+
+
+@torch.no_grad()
+def write_adam_moments(opt: GaussianAdam, mu, nu) -> GaussianAdam:
+    """:func:`with_adam_moments` into the moments' own tensors, in place,
+    when they exist (a captured train step reads and writes them at their
+    addresses); Adam's count stays. Returns ``opt``."""
+    if not opt.state:
+        return with_adam_moments(opt, mu, nu)
+    for k in PARAM_KEYS:
+        st = opt.state[opt.param(k)]
+        st["exp_avg"].copy_(mu[k])
+        st["exp_avg_sq"].copy_(nu[k])
     return opt
 
 

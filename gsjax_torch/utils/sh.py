@@ -28,9 +28,6 @@ C3 = (
     -0.5900435899266435,
 )
 
-# band index (0..3) of each of the 16 coefficients, for degree masking
-_BAND = (0,) + (1,) * 3 + (2,) * 5 + (3,) * 7
-
 
 def num_sh_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
@@ -65,6 +62,16 @@ def sh_basis(dirs):
     )
 
 
+def band_mask(k: int, degree: int, dtype, device):
+    """1 for each of the first ``k`` coefficients whose band is at most
+    ``degree``, else 0. Made on ``device`` from an ``arange`` (the band of
+    coefficient j is the number of squares 1, 4, 9 it has reached), with
+    no copy from the host, so a captured CUDA graph can hold it."""
+    j = torch.arange(k, device=device)
+    band = (j >= 1).to(torch.int64) + (j >= 4).to(torch.int64) + (j >= 9).to(torch.int64)
+    return (band <= degree).to(dtype)
+
+
 def eval_sh(sh, dirs, degree: int):
     """SH color. ``sh``: ``(..., K, 3)`` with K <= 16, ``dirs``: ``(..., 3)``.
 
@@ -73,10 +80,7 @@ def eval_sh(sh, dirs, degree: int):
     the sums run over the same terms). Returns raw SH color ``(..., 3)``;
     callers add the +0.5 DC offset."""
     k = sh.shape[-2]
-    mask = torch.tensor(
-        [float(b <= degree) for b in _BAND[:k]], dtype=sh.dtype, device=sh.device
-    )
-    basis = sh_basis(dirs)[..., :k] * mask
+    basis = sh_basis(dirs)[..., :k] * band_mask(k, degree, sh.dtype, sh.device)
     return torch.einsum("...k,...kc->...c", basis, sh)
 
 

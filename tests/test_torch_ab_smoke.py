@@ -120,5 +120,30 @@ def test_frames_mode_runs_the_frame_script_in_turns(tmp_path, capsys, monkeypatc
     assert lines[8] == {"ab": "done", "failed": []}
 
 
+@pytest.mark.parametrize("mode", ["alone", "turns"])
+def test_steps_mode_runs_the_step_script_in_turns(tmp_path, capsys, monkeypatch, mode):
+    """``--steps N --mode M``: this checkout's step script in each tree,
+    A, B, B, A twice; ``--b`` puts another tree in B's place (two older
+    trees against each other)."""
+    _stand_in(tmp_path / "a", 3.338, 0)
+    _stand_in(tmp_path / "b", 2.288, 0)
+    _stand_in(tmp_path / "here", 2.288, 0)
+    script = tmp_path / "steps.py"
+    script.write_text("import json, os, sys\n"
+                      "print(json.dumps({'steps': int(sys.argv[1]), 'mode': sys.argv[2], "
+                      "'median_ms': 41.0 if os.getcwd().endswith('b') else 42.0}))\n")
+    monkeypatch.setattr(ab_smoke, "HERE", str(tmp_path / "here"))
+    monkeypatch.setattr(ab_smoke, "STEPS_SCRIPT", str(script))
+    assert ab_smoke.main([str(tmp_path / "a"), "--b", str(tmp_path / "b"), "--steps", "5",
+                          "--mode", mode]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [r["tree"] for r in lines[:8]] == list("ABBAABBA")
+    for r in lines[:8]:
+        assert r["rc"] == 0 and r["steps"] == 5 and r["mode"] == mode
+        assert r["median_ms"] == (42.0 if r["tree"] == "A" else 41.0)
+        assert r["root"] == str(tmp_path / ("a" if r["tree"] == "A" else "b"))
+    assert lines[8] == {"ab": "done", "failed": []}
+
+
 def test_refuses_a_tree_without_chip_smoke(tmp_path):
     assert ab_smoke.main([str(tmp_path)]) == 2

@@ -729,3 +729,182 @@ def test_prng_draws_on_the_card_equal_the_cpus(shape):
             if got.dtype == torch.float32:
                 got, want = got.view(torch.int32), want.view(torch.int32)
             assert torch.equal(got.cpu(), want), (fn.__name__, seed)
+
+
+# --------------------------------------------------------------------------
+# the captured CUDA graphs of the train step, the chained dispatch and the
+# frame (utils.graphs) against the eager path
+# --------------------------------------------------------------------------
+
+
+def _graph_fixture(dev, grad_dtype="float32", n=3000, w=176, h=104):
+    from gsjax_torch.bench_scene import bench_camera, toy_state
+    from gsjax_torch.configs import OptimizationParams
+    from gsjax_torch.data.cameras import stack_render_cameras
+    from gsjax_torch.train.optim import make_optimizer
+    from gsjax_torch.train.step import TrainConfig
+
+    state = toy_state(n, 4096, device=dev)
+    cams = stack_render_cameras([bench_camera(w, h, yaw, (0.02 * yaw, 0.0, 0.0))
+                                 for yaw in (0.0, 0.01, -0.01)], dev)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (3, h, w, 3), dtype=np.uint8)).to(dev)
+    cfg = TrainConfig(settings=RasterizeSettings(
+        max_pairs=1 << 16, max_tiles_per_gauss=16, expansion="compact",
+        grad_dtype=grad_dtype), extent=3.0)
+    tx = make_optimizer(OptimizationParams(), 3.0)
+    return state, tx.init(state.params), tx, cams, images, cfg
+
+
+def _run_both(state, opt, graphed, eager, calls):
+    """``calls`` (argument tuples) through ``graphed`` from the current
+    state, then through ``eager`` from the same state restored: each run's
+    metrics and final snapshot."""
+    from gsjax_torch.train.step import restore, snapshot
+
+    start = snapshot(state, opt)
+    runs = []
+    for fn in (graphed, eager):
+        restore(state, opt, start)
+        ms = [fn(state, opt, *args)[2] for args in calls]
+        torch.cuda.synchronize()
+        runs.append((ms, snapshot(state, opt)))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", ["float32", "bfloat16"])
+def test_graphed_step_and_dispatch_equal_eager(grad_dtype):
+    """The captured train step (its first call the warm-up, then replays)
+    and chained dispatch compute what the eager path computes, bit for bit:
+    parameters, Adam's moments and counts, the statistics and the
+    metrics."""
+    from gsjax_torch.train.step import make_train_step, make_train_step_chained
+    from gsjax_torch.train.step import snapshot_differences as _differing
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, grad_dtype)
+    (gm, gs), (em, es) = _run_both(
+        state, opt, make_train_step(tx, cams, images, cfg),
+        make_train_step(tx, cams, images, cfg, eager=True), [(i % 3,) for i in range(5)])
+    assert _differing(gs, es) == []
+    for a, b in zip(gm, em):
+        assert all(torch.equal(a[k], b[k]) for k in a), (a, b)
+    chained = [make_train_step_chained(tx, cams, images, cfg, 4, eager=e) for e in (False, True)]
+    (gm, gs), (em, es) = _run_both(state, opt, *chained, [([0, 2, 1, 2],), ([1, 1, 0, 2],)])
+    assert _differing(gs, es) == []
+    assert all(torch.equal(gm[-1][k], em[-1][k]) for k in gm[-1])
+    assert chained[0].graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_scan_backend_steps_run_eager():
+    """The scan backend's backward (torch's cumprod) reads the device, so
+    its steps run eager on the card, counted as such, and never capture."""
+    import dataclasses
+
+    from gsjax_torch.train.step import STEP_PATHS, make_train_step
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, n=500, w=64, h=48)
+    cfg = dataclasses.replace(cfg, settings=dataclasses.replace(
+        cfg.settings, backend="scan", max_splats_per_tile=1024))
+    step = make_train_step(tx, cams, images, cfg)
+    before = dict(STEP_PATHS)
+    for i in range(2):
+        state, opt, m = step(state, opt, i)
+    assert np.isfinite(float(m["loss"])) and step.graphs.captures == 0
+    assert STEP_PATHS["eager"] - before["eager"] == 2
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_launches():
+    """A capture launches nothing and takes back the counts its Python
+    added; each replay adds them again: the counters stay the kernels that
+    ran."""
+    from gsjax_torch.train.step import make_train_step
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
+    step = make_train_step(tx, cams, images, cfg)
+    before = (cc.composite_fwd.launches, cc.composite_bwd.launches,
+              cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
+    for i in range(4):
+        state, opt, _ = step(state, opt, i % 3)
+    got = (cc.composite_fwd.launches, cc.composite_bwd.launches,
+           cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
+    assert tuple(g - b for g, b in zip(got, before)) == (4, 4, 4, 0)
+    entry = next(iter(step.graphs.entries.values()))[1]
+    assert entry[3].replays == 3  # the first call was the warm-up
+
+
+@pytest.mark.cuda
+def test_graphed_dispatch_never_waits_for_the_card():
+    """A replayed step and chained dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host sync is left."""
+    from gsjax_torch.train.step import make_train_step, make_train_step_chained
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
+    step = make_train_step(tx, cams, images, cfg)
+    chained = make_train_step_chained(tx, cams, images, cfg, 3)
+    state, opt, _ = step(state, opt, 0)
+    state, opt, _ = chained(state, opt, [0, 1, 2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, opt, m = step(state, opt, 1)
+        state, opt, mc = chained(state, opt, [2, 1, 0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(mc["loss_mean"]))
+
+
+@pytest.mark.cuda
+def test_graphed_frame_equals_eager():
+    from gsjax_torch.bench_scene import bench_camera, toy_state
+    from gsjax_torch.train.step import TrainConfig, make_render_fn
+
+    dev = _cuda()
+    state = toy_state(3000, 4096, device=dev)
+    cfg = TrainConfig(settings=RasterizeSettings(max_pairs=1 << 16, expansion="compact"))
+    fns = [make_render_fn(cfg, with_stats=True, eager=e) for e in (False, True)]
+    before = cc.composite_infer.launches
+    for yaw in (0.0, 0.01, -0.01, 0.0):
+        rc = bench_camera(176, 104, yaw).to_render_camera(dev)
+        bg = torch.tensor([0.1, 0.2, yaw], device=dev)
+        (gi, gd), (ei, ed) = (fn(state, rc, bg) for fn in fns)
+        assert torch.equal(gi, ei) and torch.equal(gd, ed)
+    assert cc.composite_infer.launches - before == 8
+    # new parameter tensors (render_bench perturbs xyz every frame) replay
+    # the same graph on its own copy of the model
+    import dataclasses
+
+    params = dict(state.params)
+    params["xyz"] = params["xyz"] + 1e-3
+    moved = dataclasses.replace(state, params=params)
+    (gi, _), (ei, _) = (fn(moved, rc, bg) for fn in fns)
+    assert torch.equal(gi, ei) and fns[0].graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_capture_refuses_a_host_sync():
+    """A function that reads a device value on the host cannot be
+    captured: the capture raises (in a process of its own)."""
+    import os
+    import subprocess
+    import sys
+
+    _cuda()
+    code = ("import torch\n"
+            "from gsjax_torch.utils.graphs import Graph\n"
+            "x = torch.ones(4, device='cuda')\n"
+            "g = Graph(lambda: x * int(x.sum()), torch.device('cuda'))\n"
+            "try:\n"
+            "    g()\n"
+            "except RuntimeError as e:\n"
+            "    print('refused:', str(e).splitlines()[0])\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         timeout=120)
+    assert "refused:" in res.stdout, (res.stdout, res.stderr[-2000:])

@@ -177,7 +177,7 @@ def test_trace_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["gsjax_torch.bench", "gsjax_torch.probes",
-                                    "gsjax_torch.frame_times"])
+                                    "gsjax_torch.frame_times", "gsjax_torch.step_times"])
 def test_measurement_entry_points_refuse_without_cuda(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")
@@ -196,5 +196,8 @@ def test_bench_cross_check_on_cpu_tensors():
     from gsjax_torch.bench_scene import toy_scene
 
     state, cam = toy_scene(2000, 4096, 64, 64, log_scale=-4.0, device="cpu")
-    d = backend_cross_check(state, cam.to_render_camera("cpu"), torch.zeros(3))
+    from gsjax_torch.bench import XCHECK_BEYOND_MAX
+
+    d, beyond = backend_cross_check(state, cam.to_render_camera("cpu"), torch.zeros(3))
     assert 0.0 <= d <= 6e-3
+    assert set(beyond) == {"img", "T"} and max(beyond.values()) <= XCHECK_BEYOND_MAX

@@ -21,7 +21,7 @@ from gsjax_torch.configs import OptimizationParams as TOpt
 from gsjax_torch.data.cameras import Camera as TCamera
 from gsjax_torch.ops import RasterizeSettings as TSettings
 from gsjax_torch.utils import prng
-from test_torch_render import BACKENDS, _carry, _gsjax_state
+from test_torch_render import BACKENDS, _carry, _gsjax_state, one_torch_thread  # noqa: F401
 from test_torch_train_composite import _norm_close
 
 

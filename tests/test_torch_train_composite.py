@@ -41,7 +41,9 @@ from gsjax_torch.ops import RasterizeSettings as TSettings
 from gsjax_torch.ops import cuda_composite as t_cc
 from gsjax_torch.ops import render as t_render
 from gsjax_torch.ops.composite import composite_tiles
-from test_torch_render import GOLDENS, _golden, assert_two_tier, t_camera
+from test_torch_render import (  # noqa: F401
+    GOLDENS, _golden, assert_two_tier, one_torch_thread, t_camera,
+)
 
 
 def _t(x):
