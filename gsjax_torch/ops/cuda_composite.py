@@ -36,7 +36,9 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   together.
 - :class:`CompositeFunction` / :func:`composite`, the differentiable
   compositor (gsjax's ``_composite_vjp``): ``composite_fwd`` forward,
-  ``composite_bwd`` plus the reduction backward.
+  ``composite_bwd`` plus the reduction backward. Inside a dispatch, the
+  backward marks ``utils.profiling``'s layer boundaries ``loss`` (at its
+  entry), ``composite_bwd`` and ``reduce``.
 - :func:`load_library`, which builds each kernel of ``SOURCES`` (these
   three and the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe`)
   with ``nvcc`` for ``sm_90a`` at first use into ``build/gsjax_torch/``
@@ -67,6 +69,7 @@ import torch
 
 from gsjax_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, _tile_pixel_coords, scan_tiles
 from gsjax_torch.ops.projection import TILE
+from gsjax_torch.utils import profiling
 
 PIX = TILE * TILE
 ATTR_W = 8  # float32 words per gaussian row
@@ -822,7 +825,9 @@ def composite_grads(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T
     pair_grads = composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
                                d_tile_T, final_T, n_contrib, tiles_x, tiles_y,
                                grad_dtype=grad_dtype, grad_reduce=grad_reduce)
+    profiling.mark("composite_bwd")
     per_gauss = reduce_pair_grads(pair_grads, pair_gauss, tile_start, gauss_attrs.shape[0])
+    profiling.mark("reduce")
     return per_gauss[:, 0:2], per_gauss[:, 2:5], per_gauss[:, 6:9], per_gauss[:, 5]
 
 
@@ -847,6 +852,7 @@ class CompositeFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_tile_colors, d_tile_T):
+        profiling.mark("loss")  # the loss and its backward down to the tiles end here
         tile_start, pair_gauss, attrs, tile_T, n_contrib = ctx.saved_tensors
         d_means2d, d_conics, d_colors, d_opacities = composite_grads(
             tile_start, pair_gauss, attrs, d_tile_colors, d_tile_T, tile_T, n_contrib,

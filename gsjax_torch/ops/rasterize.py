@@ -29,6 +29,11 @@ backward kernel and reduction), whose per-pair table follows
 otherwise the bookkeeping-free ``composite_infer``, so the render path is
 exactly what it was. The scan backend ignores both settings, as gsjax's
 "xla" backend does.
+
+Inside a dispatch or frame, :func:`render` marks two layer boundaries of
+``utils.profiling``'s clock: ``prep`` (preprocess and binning) and the
+compositing, ``composite_fwd`` where gradients flow, else
+``composite_infer``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from gsjax_torch.ops.cuda_composite import (
     pack_gauss_attrs,
 )
 from gsjax_torch.ops.projection import TILE, num_tiles, preprocess, project_points
+from gsjax_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,13 +148,15 @@ def render(
         tier_frac=settings.tier_frac,
         expansion=settings.expansion,
     )
+    profiling.mark("prep")
     dev = means3d.device
     backend = settings.backend
     if backend == "auto":
         backend = "kernel" if dev.type == "cuda" else "scan"
+    blend_in = (splats.means2d, splats.conics, splats.colors, splats.opacities)
+    differentiable = torch.is_grad_enabled() and any(t.requires_grad for t in blend_in)
     if backend == "kernel":
-        blend_in = (splats.means2d, splats.conics, splats.colors, splats.opacities)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in blend_in):
+        if differentiable:
             tile_colors, tile_T = composite(
                 *blend_in, bins.tile_start, bins.pair_gauss, tiles_x, tiles_y,
                 settings.grad_dtype, settings.grad_reduce)
@@ -164,6 +172,7 @@ def render(
             splats.colors, splats.opacities, tiles_x, tiles_y,
             settings.max_splats_per_tile, settings.chunk,
         )
+    profiling.mark("composite_fwd" if differentiable else "composite_infer")
     image, final_T = assemble_image(
         tile_colors, tile_T, torch.as_tensor(bg, dtype=torch.float32, device=dev),
         tiles_x, tiles_y, camera.width, camera.height,

@@ -107,8 +107,7 @@ def main(argv=None):
     from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.parallel.multihost import is_main_process, maybe_initialize, rank_device
     from gsjax_torch.train.loop import training
-    from gsjax_torch.train.step import STEP_PATHS
-    from gsjax_torch.utils.graphs import CAPTURES
+    from gsjax_torch.utils import profiling
     from gsjax_torch.utils.system import safe_state
 
     device = rank_device(args.device)  # fail before loading anything
@@ -192,8 +191,7 @@ def main(argv=None):
     for k in kernels:
         k.launches = 0
     cc.composite_bwd.launches_bf16 = 0
-    STEP_PATHS.update(graph=0, capture=0, eager=0)
-    CAPTURES.update(count=0, seconds=0.0)
+    profiling.REGISTRY.reset()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -219,14 +217,25 @@ def main(argv=None):
         )
     wall = time.perf_counter() - t0
     print("\nTraining complete.")
+    rec = profiling.records()
+    both = [rec["untraced"], rec["traced"]]
+    captures = [r["spans"].get("graph.capture", {"count": 0, "seconds": 0.0}) for r in both]
     summary = {
         "stage": "done", "rank": torch.distributed.get_rank() if distributed else 0, "iterations": opt.iterations, "wall_s": wall,
         "num_active": int(state.num_active), "capacity": state.capacity,
         "launches": {k.__name__: k.launches for k in kernels},
         # of composite_bwd's launches, those of its bf16 instances (grad_dtype)
         "bwd_launches_bf16": cc.composite_bwd.launches_bf16,
-        "step_paths": dict(STEP_PATHS),
-        "graph_captures": dict(CAPTURES),
+        # steps by path (graph: replays; capture: a new graph's warm-up;
+        # eager: op by op) and the captures, under a profiler or not
+        "step_paths": {p: sum(r["counters"].get(f"train.{p}", 0) for r in both)
+                       for p in ("graph", "capture", "eager")},
+        "graph_captures": {"count": sum(c["count"] for c in captures),
+                           "seconds": sum(c["seconds"] for c in captures)},
+        # the registry's spans and layer clock, of the calls made without a profiler
+        "spans": rec["untraced"]["spans"],
+        "layers": {kind: {path: t["ms"] for path, t in paths.items()}
+                   for kind, paths in rec["untraced"]["layers"].items()},
         "peak_memory_gib": (torch.cuda.max_memory_allocated(device) / 2**30
                             if device.type == "cuda" else None),
     }

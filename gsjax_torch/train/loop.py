@@ -23,7 +23,8 @@ the SH ramp captures anew. Three cases run eager, each logged: the
 sharded steps (their gloo collectives cannot be captured), every step
 from ``debug_from`` on (autograd's anomaly mode cannot be captured) and
 the scan backend's steps (the backward of its cumprod reads the device).
-``train.step.STEP_PATHS`` counts the steps each path ran. gsjax's
+The counters ``train.graph``, ``train.capture`` and ``train.eager`` of
+``utils.profiling``'s registry count the steps each path ran. gsjax's
 background compile of the next capacity bucket (``CapacityWarmer``,
 ``_grown_abstract``, ``_with_fallback``, ``_warmed_densify``) and the AOT
 lowering of the step (``_attach_lower_images``) have no counterpart: the
@@ -76,7 +77,6 @@ from gsjax_torch.train.optim import (
 )
 from gsjax_torch.train.scene import Scene
 from gsjax_torch.train.step import (
-    STEP_PATHS,
     TrainConfig,
     make_densify_step,
     make_render_fn,
@@ -86,7 +86,7 @@ from gsjax_torch.train.step import (
 )
 from gsjax_torch.parallel import comm
 from gsjax_torch.parallel.multihost import is_main_process, process_count
-from gsjax_torch.utils import prng
+from gsjax_torch.utils import profiling, prng
 from gsjax_torch.utils.system import resolve_device
 
 GROW_WATERMARK = 0.9  # grow capacity when the active fraction exceeds this
@@ -586,7 +586,7 @@ def training(
             loss = metrics["loss"]
             n_stepped = 1
         if mesh is not None:
-            STEP_PATHS["eager"] += n_stepped
+            profiling.count("train.eager", n_stepped)
         dt = time.time() - t0
         it_times.extend([dt / n_stepped] * n_stepped)
         iteration += n_stepped - 1

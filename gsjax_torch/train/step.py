@@ -24,6 +24,16 @@ replays it, and ``eager=True`` runs the same ops one by one (the CPU
 always does). The device's half of a step reads nothing back to the host
 and every tensor it writes keeps its address; the host's half (camera
 indices, Adam's row, random backgrounds) goes into the graph's buffers.
+
+Each dispatch and frame is a call of ``utils.profiling``'s registry: spans
+time its host half (``dispatch.prepare``, ``dispatch.bind``,
+``dispatch.copy_in``, ``dispatch.eager``; ``frame.bind``,
+``frame.copy_in``), counters count the items each path ran
+(``train.graph``, ``train.capture``, ``train.eager``, and ``view.*``), and
+the layer clock's marks split an iteration into ``prep``,
+``composite_fwd``, ``loss``, ``composite_bwd``, ``reduce``, ``prep_bwd``,
+``adam`` and ``stats``, a frame into ``copy_in``, ``prep``,
+``composite_infer`` and ``finish``.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from gsjax_torch.ops.rasterize import RasterizeSettings, render
 from gsjax_torch.train.loss import l1_loss, ssim
 from gsjax_torch.train import optim
 from gsjax_torch.train.optim import adam_moments, write_adam_moments
-from gsjax_torch.utils import graphs, prng
+from gsjax_torch.utils import graphs, profiling, prng
 from gsjax_torch.utils.math import build_covariance, safe_normalize, strip_symmetric
 from gsjax_torch.utils.sh import eval_sh
 
@@ -121,6 +131,7 @@ def make_render_fn(
     frame. ``eager=True`` (and any CPU state) runs the frame op by op."""
 
     def frame(state, camera, bg, scale_modifier, shs_python, cov3d_python):
+        profiling.mark_start()
         means3d, scales, quats, opac, shs = activated(state)
         cov3d = colors = None
         if cov3d_python:
@@ -141,9 +152,9 @@ def make_render_fn(
         img = out["render"]
         if as_uint8:
             img = quantize(img)
-        if with_stats:
-            return img, out["num_dropped"]
-        return img
+        out = (img, out["num_dropped"]) if with_stats else img
+        profiling.mark("finish")
+        return out
 
     cache = graphs.GraphCache()
 
@@ -157,35 +168,44 @@ def make_render_fn(
         shs_python: bool = False,
         cov3d_python: bool = False,
     ):
-        dev = state.device
-        if eager or dev.type != "cuda":
-            return frame(state, camera, bg, scale_modifier, shs_python, cov3d_python)
-        key = (state.capacity, state.active_sh_degree, camera.width, camera.height,
-               float(scale_modifier), bool(shs_python), bool(cov3d_python))
+        with profiling.call("frame", "view", 1) as call:
+            dev = state.device
+            if eager or dev.type != "cuda":
+                call.take("eager")
+                profiling.mark_start()
+                profiling.mark("copy_in")  # the eager frame reads the state in place
+                return frame(state, camera, bg, scale_modifier, shs_python, cov3d_python)
 
-        def make():
-            # the graph renders its own copy of the model: callers pass new
-            # parameter tensors (render_bench perturbs xyz every frame), and
-            # a captured train step changes the live ones without a trace
-            own = dataclasses.replace(
-                state, params={k: torch.empty_like(v) for k, v in state.params.items()},
-                active=torch.empty_like(state.active))
-            cam = RenderCamera(**{k: torch.empty_like(getattr(camera, k), device=dev)
-                                  for k in CAMERA_TENSORS},
-                               width=camera.width, height=camera.height)
-            bg_buf = torch.empty(3, dtype=torch.float32, device=dev)
-            g = graphs.Graph(lambda: frame(own, cam, bg_buf, float(scale_modifier),
-                                           shs_python, cov3d_python), dev)
-            return own, cam, bg_buf, g
+            def make():
+                # the graph renders its own copy of the model: callers pass new
+                # parameter tensors (render_bench perturbs xyz every frame), and
+                # a captured train step changes the live ones without a trace
+                own = dataclasses.replace(
+                    state, params={k: torch.empty_like(v) for k, v in state.params.items()},
+                    active=torch.empty_like(state.active))
+                cam = RenderCamera(**{k: torch.empty_like(getattr(camera, k), device=dev)
+                                      for k in CAMERA_TENSORS},
+                                   width=camera.width, height=camera.height)
+                bg_buf = torch.empty(3, dtype=torch.float32, device=dev)
+                g = graphs.Graph(lambda: frame(own, cam, bg_buf, float(scale_modifier),
+                                               shs_python, cov3d_python), dev)
+                return own, cam, bg_buf, g
 
-        own, cam, bg_buf, g = cache.get(key, (), make)
-        for k, v in state.params.items():
-            own.params[k].copy_(v)
-        own.active.copy_(state.active)
-        for k in CAMERA_TENSORS:
-            graphs.pin_copy_(getattr(cam, k), getattr(camera, k))
-        graphs.pin_copy_(bg_buf, bg)
-        return g()
+            with profiling.span("frame.bind"):
+                key = (state.capacity, state.active_sh_degree, camera.width, camera.height,
+                       float(scale_modifier), bool(shs_python), bool(cov3d_python))
+                own, cam, bg_buf, g = cache.get(key, (), make)
+            call.take("graph" if g.graph is not None else "capture")
+            with profiling.span("frame.copy_in"):
+                profiling.mark_start()
+                for k, v in state.params.items():
+                    own.params[k].copy_(v)
+                own.active.copy_(state.active)
+                for k in CAMERA_TENSORS:
+                    graphs.pin_copy_(getattr(cam, k), getattr(camera, k))
+                graphs.pin_copy_(bg_buf, bg)
+                profiling.mark("copy_in")
+            return g()
 
     render_fn.settings = cfg.settings  # the budgets it renders with
     render_fn.graphs = cache
@@ -219,6 +239,7 @@ def _train_step_body(cameras, images, cfg: TrainConfig, state: GaussianState, op
     (``opt_state`` is the optimizer ``tx.init`` made over ``state.params``),
     and so do the densification statistics. Returns the metrics, 0-d
     device tensors."""
+    profiling.mark_start()
     camera = index_render_camera(cameras, cam_idx)
     dev = state.device
     gt = take_row(images, cam_idx)
@@ -246,6 +267,7 @@ def _train_step_body(cameras, images, cfg: TrainConfig, state: GaussianState, op
         loss = (1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * (1.0 - ssim(img, gt))
     opt_state.zero_grad(set_to_none=True)
     loss.backward()
+    profiling.mark("prep_bwd")
     if apply_update:
         # a parameter the loss does not reach (f_rest at SH degree 0) still
         # takes its Adam step with a zero gradient, as in optax
@@ -253,11 +275,12 @@ def _train_step_body(cameras, images, cfg: TrainConfig, state: GaussianState, op
             if v.grad is None:
                 v.grad = torch.zeros_like(v)
         opt_state.update(adam_row)
+    profiling.mark("adam")
     opt_state.zero_grad(set_to_none=True)
 
     g_offset = offset.grad if offset.grad is not None else torch.zeros_like(offset)
     add_densification_stats_(state, g_offset, out["radii"], camera.width, camera.height)
-    return {
+    metrics = {
         "loss": loss.detach(),
         "l1": ll1.detach(),
         "num_dropped_pairs": out["num_dropped"],
@@ -266,6 +289,8 @@ def _train_step_body(cameras, images, cfg: TrainConfig, state: GaussianState, op
         "num_tile_capped": out["num_tile_capped"],
         "num_active": state.num_active,
     }
+    profiling.mark("stats")
+    return metrics
 
 
 def _chained_body(cameras, images, cfg, state, opt_state, cam_idxs, bgs, rows):
@@ -298,13 +323,6 @@ def _bg_and_images(cameras, images, cfg: TrainConfig):
     return bg_color, torch.as_tensor(images).to(dev)
 
 
-# steps run on each path since the count was last set to 0 (the train CLI
-# reports them): "graph" replayed a captured CUDA graph, "capture" ran
-# eagerly on the capture stream as a new graph's warm-up, "eager" ran op by
-# op (``eager=True``, the CPU, and the sharded steps the trainer runs)
-STEP_PATHS = {"graph": 0, "capture": 0, "eager": 0}
-
-
 class _Dispatch:
     """A train step (``chained=False``: one iteration) or a chained
     dispatch of ``n`` iterations over one camera batch.
@@ -312,7 +330,9 @@ class _Dispatch:
     A call does the host's half first: each step's camera index, Adam row
     (:meth:`GaussianAdam.advance`, which moves the counts on) and, under
     ``random_background``, its background drawn with gsjax's key
-    (``utils.prng``, on the device). On a card it then writes them into a
+    (``utils.prng``, on the device); the registry counts the steps each
+    path runs (``train.graph``: a replay; ``train.capture``: a new graph's
+    warm-up; ``train.eager``: op by op). On a card it then writes them into a
     captured graph's static buffers and replays it (``utils.graphs``): one
     graph per (capacity, SH degree, ``apply_update``) and the state's and
     moments' tensors, as gsjax's ``jit`` compiles per shape and per
@@ -342,51 +362,55 @@ class _Dispatch:
                                 apply)
 
     def __call__(self, state, opt_state, cam_idxs, keys, apply: bool):
-        _check_bound(self.tx, state, opt_state)
-        dev = state.device
-        if self.cfg.random_background and any(k is None for k in keys):
-            raise ValueError("random_background needs a key")
-        cam_idxs = [int(i) for i in cam_idxs]
-        if not all(0 <= i < len(self.cameras) for i in cam_idxs):
-            # the device gathers the camera: an index out of range would
-            # be a device-side assert there, not an error here
-            raise IndexError(f"camera indices {cam_idxs} out of range for "
-                             f"{len(self.cameras)} cameras")
-        opt_state.init_state()
-        rows = [opt_state.advance() for _ in range(self.n)] if apply else None
-        draws = ([prng.uniform(k, (3,), dev) for k in keys]
-                 if self.cfg.random_background else None)
-        if self.eager or dev.type != "cuda":
-            STEP_PATHS["eager"] += self.n
-            cams = graphs.pin_copy_(torch.empty(self.n, dtype=torch.int64, device=dev),
-                                    cam_idxs)
-            bgs = torch.stack(draws) if draws else self.bg_color.expand(self.n, 3)
-            adam = None if rows is None else graphs.pin_copy_(
-                torch.empty((self.n, optim.ROW_W), device=dev), rows)
-            return state, opt_state, self.body(state, opt_state, cams, bgs, adam, apply)
+        with profiling.call("dispatch", "train", self.n) as call:
+            dev = state.device
+            with profiling.span("dispatch.prepare"):
+                _check_bound(self.tx, state, opt_state)
+                if self.cfg.random_background and any(k is None for k in keys):
+                    raise ValueError("random_background needs a key")
+                cam_idxs = [int(i) for i in cam_idxs]
+                if not all(0 <= i < len(self.cameras) for i in cam_idxs):
+                    # the device gathers the camera: an index out of range would
+                    # be a device-side assert there, not an error here
+                    raise IndexError(f"camera indices {cam_idxs} out of range for "
+                                     f"{len(self.cameras)} cameras")
+                opt_state.init_state()
+                rows = [opt_state.advance() for _ in range(self.n)] if apply else None
+                draws = ([prng.uniform(k, (3,), dev) for k in keys]
+                         if self.cfg.random_background else None)
+            if self.eager or dev.type != "cuda":
+                call.take("eager")
+                with profiling.span("dispatch.eager"):
+                    cams = graphs.pin_copy_(torch.empty(self.n, dtype=torch.int64, device=dev),
+                                            cam_idxs)
+                    bgs = torch.stack(draws) if draws else self.bg_color.expand(self.n, 3)
+                    adam = None if rows is None else graphs.pin_copy_(
+                        torch.empty((self.n, optim.ROW_W), device=dev), rows)
+                    return state, opt_state, self.body(state, opt_state, cams, bgs, adam, apply)
 
-        key = (state.capacity, state.active_sh_degree, apply)
-        mu, nu = adam_moments(opt_state)
-        binding = graphs.addresses(*state.params.values(), state.active, state.max_radii2d,
-                                   state.xyz_grad_accum, state.denom, *mu.values(),
-                                   *nu.values())
+            def make():
+                cams = torch.zeros(self.n, dtype=torch.int64, device=dev)
+                bgs = self.bg_color.repeat(self.n, 1)
+                adam = torch.zeros((self.n, optim.ROW_W), dtype=torch.float32, device=dev)
+                g = graphs.Graph(lambda: self.body(state, opt_state, cams, bgs,
+                                                   adam if apply else None, apply), dev)
+                return cams, bgs, adam, g
 
-        def make():
-            cams = torch.zeros(self.n, dtype=torch.int64, device=dev)
-            bgs = self.bg_color.repeat(self.n, 1)
-            adam = torch.zeros((self.n, optim.ROW_W), dtype=torch.float32, device=dev)
-            g = graphs.Graph(lambda: self.body(state, opt_state, cams, bgs,
-                                               adam if apply else None, apply), dev)
-            return cams, bgs, adam, g
-
-        cams, bgs, adam, g = self.graphs.get(key, binding, make)
-        graphs.pin_copy_(cams, cam_idxs)
-        if rows is not None:
-            graphs.pin_copy_(adam, rows)
-        for i, d in enumerate(draws or ()):
-            bgs[i].copy_(d)
-        STEP_PATHS["capture" if g.graph is None else "graph"] += self.n
-        return state, opt_state, g()
+            with profiling.span("dispatch.bind"):
+                key = (state.capacity, state.active_sh_degree, apply)
+                mu, nu = adam_moments(opt_state)
+                binding = graphs.addresses(*state.params.values(), state.active,
+                                           state.max_radii2d, state.xyz_grad_accum, state.denom,
+                                           *mu.values(), *nu.values())
+                cams, bgs, adam, g = self.graphs.get(key, binding, make)
+            with profiling.span("dispatch.copy_in"):
+                graphs.pin_copy_(cams, cam_idxs)
+                if rows is not None:
+                    graphs.pin_copy_(adam, rows)
+                for i, d in enumerate(draws or ()):
+                    bgs[i].copy_(d)
+            call.take("capture" if g.graph is None else "graph")
+            return state, opt_state, g()
 
 
 def make_train_step(tx, cameras, images, cfg: TrainConfig, *, eager: bool = False):

@@ -20,16 +20,27 @@ The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``)
 are Python and run while a graph is captured, when nothing is launched.
 :class:`Graph` takes back what a capture added and adds it again at every
 replay, so the counts stay the number of kernels that ran.
+
+Spans of ``utils.profiling``'s registry time a graph's host work:
+``graph.warm_up`` and ``graph.capture`` (their counts are the captures),
+``graph.replay`` (``cudaGraphLaunch``), ``graph.first_replay`` (a graph's
+first launch, which also uploads it and can hold the host for as long as
+the card runs the graph) and ``graph.outputs`` (the copy of the outputs
+and the launch counts). The layer clock's marks that a capture records are
+event-record nodes of the graph: :class:`Graph` keeps them and hands them
+to the clock at every replay.
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import time
 
 import torch
 
 from gsjax_torch.ops import cuda_composite
+from gsjax_torch.utils import profiling
 
 # (wrapper, attribute) of every launch counter a captured function can move
 _COUNTERS = (
@@ -41,9 +52,6 @@ _COUNTERS = (
     (cuda_composite.composite_bwd_counts, "launches"),
 )
 GRAPHS_KEPT = 2  # captured graphs a cache keeps (each holds its own memory pool)
-# captures since the counts were last set to 0, and the host seconds they
-# took (the warm-ups not included; the train CLI reports both)
-CAPTURES = {"count": 0, "seconds": 0.0}
 
 _streams: dict = {}
 
@@ -92,8 +100,9 @@ class Graph:
     """``fn`` (no arguments, returns tensors) as a CUDA graph on
     ``device``: the first call runs ``fn`` eagerly on the capture stream
     and then captures it, later calls replay it. Each call returns a copy
-    of the outputs. ``replays`` counts the replays, ``capture_s`` is the
-    host seconds of the capture (with its instantiation)."""
+    of the outputs. ``capture_s`` is the host seconds of the capture (with
+    its instantiation), ``marks`` the layer clock's stamps it recorded
+    (``mark_events``: their events, which the graph's nodes need alive)."""
 
     def __init__(self, fn, device: torch.device):
         self.fn = fn
@@ -101,16 +110,20 @@ class Graph:
         self.graph = None
         self.out = None
         self.delta = None
-        self.replays = 0
         self.capture_s = None
+        self.marks, self.mark_events = [], []
+        self.launched = False
 
     def __call__(self):
         if self.graph is None:
             return self._warm_up_and_capture()
-        self.graph.replay()
-        _add_launch_counts(self.delta)
-        self.replays += 1
-        return clone_outputs(self.out)
+        profiling.REGISTRY.replaying(self.marks, self.mark_events)
+        with profiling.span("graph.replay" if self.launched else "graph.first_replay"):
+            self.graph.replay()
+        self.launched = True
+        with profiling.span("graph.outputs"):
+            _add_launch_counts(self.delta)
+            return clone_outputs(self.out)
 
     def _warm_up_and_capture(self):
         if torch.is_anomaly_enabled():
@@ -118,19 +131,30 @@ class Graph:
                                "graph: build the step with eager=True")
         s = capture_stream(self.device)
         cur = torch.cuda.current_stream(self.device)
-        s.wait_stream(cur)
-        with torch.cuda.stream(s):
-            out = self.fn()
-        cur.wait_stream(s)
-        t0 = time.perf_counter()
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=s):
-            self.out = self.fn()
-        after = launch_counts()
-        self.capture_s = time.perf_counter() - t0
-        CAPTURES["count"] += 1
-        CAPTURES["seconds"] += self.capture_s
+        with profiling.span("graph.warm_up"):
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                out = self.fn()
+            cur.wait_stream(s)
+        # no garbage collection inside the capture: a graph it freed there
+        # (a dropped step closure's, which sits in a reference cycle) would
+        # be destroyed during the capture, which CUDA refuses
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with profiling.span("graph.capture"), \
+                    profiling.REGISTRY.capturing() as (marks, self.mark_events):
+                t0 = time.perf_counter()
+                before = launch_counts()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=s):
+                    self.out = self.fn()
+                after = launch_counts()
+                self.capture_s = time.perf_counter() - t0
+        finally:
+            if collecting:
+                gc.enable()
+        self.marks = marks
         self.delta = tuple(a - b for a, b in zip(after, before))
         _add_launch_counts(tuple(-d for d in self.delta))  # the capture launched nothing
         self.graph = graph

@@ -28,12 +28,22 @@ warp-level work, with their exps), :func:`composite_work`,
 
 Everything that times raises on a device that is not CUDA: a CPU time is
 no measurement of the card.
+
+The port measures itself through :data:`REGISTRY` (:class:`Registry`):
+spans of the host's work in each dispatch and frame, counters, and a
+layer clock whose marks, recorded by the code that does each layer's work,
+become event-record nodes of the captured graphs; :func:`records` writes
+it all out as a plain dict (the train CLI's summary and the benchmark's
+``graph_*`` and ``host_*_ms`` metrics read it). On the CPU and the eager
+path the marks take the host's clock, which only checks the segmentation.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
 from typing import Callable, Dict
 
@@ -491,3 +501,458 @@ def roofline_report(
         "hbm_gbps_achieved": gbps,
         "hbm_roofline_frac": gbps / (PEAK_BYTES_PER_S / 1e9),
     }
+
+
+# --------------------------------------------------------------------------
+# the registry: spans, counters and the layer clock of the port's own calls
+# --------------------------------------------------------------------------
+
+RING = 512  # the newest spans the registry keeps
+FREE_EVENTS = 64  # eager-stamp events kept for reuse
+SPAN_PREFIX = "gsjax_torch."  # a span's name on a profiler's timeline
+
+
+def profiler_on() -> bool:
+    """Whether a ``torch.profiler`` records in this process (a flag torch
+    keeps in Python, so asking costs no call into C++)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+class _Driver:
+    """The CUDA driver's event calls through ``ctypes``, on raw event
+    handles (ints): the layer clock's stamps outside a graph and its reads.
+    On an H100 machine's host a read costs 3.7 us and a record 3.1 this
+    way, where ``Event.elapsed_time`` costs 6.6 and ``Event.record`` on
+    ``current_stream()`` 8.0."""
+
+    NOT_READY = 600  # CUDA_ERROR_NOT_READY
+
+    def __init__(self):
+        import ctypes
+
+        lib = ctypes.CDLL("libcuda.so.1")
+        vp = ctypes.c_void_p
+        self._fns = {}
+        for name, args in (("cuEventCreate", [ctypes.POINTER(vp), ctypes.c_uint]),
+                           ("cuEventRecord", [vp, vp]), ("cuEventQuery", [vp]),
+                           ("cuEventElapsedTime", [ctypes.POINTER(ctypes.c_float), vp, vp]),
+                           ("cuEventDestroy_v2", [vp])):
+            f = getattr(lib, name)
+            f.argtypes, f.restype = args, ctypes.c_int
+            self._fns[name] = f
+        self._handle, self._ms = vp(), ctypes.c_float()
+        self._p_handle, self._p_ms = ctypes.byref(self._handle), ctypes.byref(self._ms)
+
+    def _call(self, name, *args) -> int:
+        rc = self._fns[name](*args)
+        if rc and rc != self.NOT_READY:
+            raise RuntimeError(f"{name} failed with CUresult {rc}")
+        return rc
+
+    def create(self) -> int:
+        """A new event that records times, on the calling thread's context."""
+        self._call("cuEventCreate", self._p_handle, 0)
+        return self._handle.value
+
+    def record(self, event: int, stream: int):
+        self._call("cuEventRecord", event, stream)
+
+    def passed(self, event: int) -> bool:
+        """Whether the card has passed the event's last record."""
+        return self._call("cuEventQuery", event) == 0
+
+    def elapsed_s(self, a: int, b: int) -> float:
+        """Seconds from event ``a`` to event ``b``, both passed."""
+        self._call("cuEventElapsedTime", self._p_ms, a, b)
+        return self._ms.value * 1e-3
+
+    def destroy(self, event: int):
+        self._call("cuEventDestroy_v2", event)
+
+
+_DRIVER: list = []  # the one _Driver, once a graph call has needed it
+
+
+def _driver() -> _Driver:
+    if not _DRIVER:
+        _DRIVER.append(_Driver())
+    return _DRIVER[0]
+
+
+def _current_stream() -> int:
+    """The current CUDA stream's raw handle (``torch.cuda.current_stream()``
+    builds a Python stream object: ~45 us of the H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def _host_elapsed_s(a: int, b: int) -> float:
+    """Seconds between two host clock readings (ns)."""
+    return (b - a) * 1e-9
+
+
+class _Layers:
+    """The layer clock's totals of one (kind, path): the segments' seconds
+    over the items (steps or frames) of the calls read, and for the idle
+    share the device time (the sum of the segments) against the host
+    interval from a call's start to the next call's start."""
+
+    __slots__ = ("items", "calls", "unread", "seconds", "device_s", "interval_s")
+
+    def __init__(self):
+        self.items = self.calls = self.unread = 0
+        self.seconds = {}
+        self.device_s = self.interval_s = 0.0
+
+    def as_dict(self) -> dict:
+        return {
+            "items": self.items, "calls": self.calls, "unread": self.unread,
+            "seconds": dict(self.seconds),
+            "ms": ({k: 1e3 * v / self.items for k, v in self.seconds.items()}
+                   if self.items else {}),
+            "device_s": self.device_s, "interval_s": self.interval_s,
+            "idle": (100.0 * (1.0 - self.device_s / self.interval_s)
+                     if self.interval_s > 0 else None),
+        }
+
+
+class _Span:
+    """A span's context: its host time goes to its name's totals and to the
+    ring; under a profiler it is also a ``record_function``."""
+
+    __slots__ = ("reg", "name", "parent", "traced", "rf", "t0")
+
+    def __init__(self, reg, name: str):
+        self.reg, self.name = reg, name
+
+    def __enter__(self):
+        stack = self.reg._stack()
+        self.parent = stack[-1] if stack else None
+        self.traced = profiler_on()
+        if self.traced:
+            self.rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self.rf.__enter__()
+        stack.append(self.name)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        reg = self.reg
+        reg._stack().pop()
+        if self.traced:
+            self.rf.__exit__(*exc)
+        totals = reg.spans[self.traced]
+        t = totals.get(self.name)
+        if t is None:
+            t = totals[self.name] = [0, 0]
+        t[0] += 1
+        t[1] += dt
+        reg.ring.append((reg.serial, self.name, self.parent, self.t0, dt, self.traced))
+        return False
+
+
+class Call:
+    """One dispatch or frame (:meth:`Registry.call`) and its layer clock.
+    Its stamps ``(segment, stamp)`` come in order; a stamp ends
+    ``segment``, which began at the stamp before it (``None``: a start,
+    which ends no segment, so the time since the stamp before it is
+    neither read nor counted busy). A call on the graph path stamps with
+    CUDA events, every other call with the host's clock."""
+
+    __slots__ = ("reg", "name", "kind", "items", "traced", "t0", "path", "events",
+                 "stream", "stamps", "own", "capture", "graphs", "spoiled", "interval",
+                 "busy_s", "mine", "span")
+
+    def __init__(self, reg, name: str, kind: str, items: int):
+        self.reg, self.name, self.kind, self.items = reg, name, kind, items
+        self.path, self.events, self.stream = "eager", False, None
+        self.stamps, self.own, self.capture, self.graphs = [], [], None, []
+        self.spoiled = False
+        self.interval = self.busy_s = None
+
+    def take(self, path: str):
+        """The path this call takes ("graph": a replay; "capture": a new
+        graph's warm-up and capture; "eager": op by op), counted as
+        ``<kind>.<path>`` items."""
+        self.path, self.events = path, path == "graph"
+        if self.events:
+            self.stream = _current_stream()
+        self.reg.count(f"{self.kind}.{path}", self.items)
+
+    def __enter__(self):
+        reg = self.reg
+        self.t0 = time.perf_counter_ns()
+        self.traced = profiler_on()
+        reg._end_interval(self.t0, self.traced)
+        if reg.pending:
+            reg.read_pending()
+        reg.serial += 1
+        self.mine = reg.clock is None
+        if self.mine:
+            reg.clock = self
+        else:  # a call inside a call, or from another thread: neither is read
+            reg.clock.spoiled = self.spoiled = True
+        self.span = _Span(reg, self.name).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.span.__exit__(*exc)
+        if exc[0] is not None:
+            self.spoiled = True  # a call that raised is not read
+        reg = self.reg
+        if self.mine:
+            reg.clock = None
+            reg._close(self)
+        else:
+            reg._layers(self).unread += 1
+        return False
+
+
+class Registry:
+    """Spans, counters and the layer clock of the port's dispatches and
+    frames, in memory until :meth:`records` writes them out.
+
+    Every total is kept twice: for calls made while no ``torch.profiler``
+    records (``untraced``) and while one does (``traced``). A span adds its
+    host time to its name's count and seconds, and to a ring of the newest
+    :data:`RING` spans, each with the serial of its dispatch or frame and
+    its parent's name; under a profiler it also opens
+    ``record_function("gsjax_torch.<name>")``, so that it sits on the
+    trace's timeline.
+
+    The layer clock: while a dispatch or frame is open (:meth:`call`;
+    process-wide, not per thread, since autograd runs the backward on a
+    thread of its own), :meth:`mark` stamps a layer boundary. Captured into
+    a CUDA graph, a stamp is an event-record node, so every replay times
+    its own layers. The host never waits for them: at each call (and at
+    :meth:`records`) a graph call whose last event the card has passed is
+    read into the per-layer totals; one whose graph replays again before
+    that is counted ``unread``. With no call open a mark does nothing, so
+    the layers' functions called directly record nothing. Eager and
+    capturing calls stamp with the host's clock: no time of the card, kept
+    apart by path."""
+
+    def __init__(self):
+        self._local = threading.local()
+        self.ring = collections.deque(maxlen=RING)
+        self.pending, self.free = [], []
+        self.reset()
+
+    def reset(self):
+        for c in self.pending:
+            self._release(c)
+        for e in self.free:
+            _driver().destroy(e)
+        self.spans = ({}, {})  # [traced]: name -> [count, ns]
+        self.counters = ({}, {})  # [traced]: name -> count
+        self.layers = ({}, {})  # [traced]: (kind, path) -> _Layers
+        self.ring.clear()
+        self.serial = 0
+        self.clock = None  # the open call
+        self.pending = []  # graph calls not read yet
+        self.free = []  # raw events of calls done with, to stamp again
+        self._prev = None  # the last call: its interval ends at the next call's start
+
+    # ---- spans and counters ----------------------------------------------
+
+    def _stack(self) -> list:
+        s = getattr(self._local, "stack", None)
+        if s is None:
+            s = self._local.stack = []
+        return s
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def count(self, name: str, n: int = 1):
+        c = self.counters[profiler_on()]
+        c[name] = c.get(name, 0) + n
+
+    # ---- the layer clock ---------------------------------------------------
+
+    def call(self, name: str, kind: str, items: int) -> Call:
+        """One dispatch (``kind`` "train", ``items`` its steps) or frame
+        ("view", 1) under the span ``name``, as a context that yields its
+        :class:`Call`. A call opened while another is open (nested, or from
+        another thread) spoils both clocks: neither is read."""
+        return Call(self, name, kind, items)
+
+    def mark(self, segment):
+        """End the open call's layer ``segment`` here (``None``: start a
+        segment, ending none)."""
+        c = self.clock
+        if c is None:
+            return
+        if c.capture is not None:
+            e = torch.cuda.Event(enable_timing=True, external=True)
+            e.record()
+            c.capture[0].append((segment, e.cuda_event))
+            c.capture[1].append(e)
+        elif c.events:
+            e = self.free.pop() if self.free else _driver().create()
+            _driver().record(e, c.stream)
+            c.stamps.append((segment, e))
+            c.own.append(e)
+        else:
+            c.stamps.append((segment, time.perf_counter_ns()))
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Around a CUDA graph's capture: yields ``(marks, events)``, the
+        lists that take the marks recorded into the graph, ``(segment, raw
+        event)``, and their ``torch.cuda.Event``s, which the graph has to
+        keep: an event-record node needs its event alive."""
+        marks, events, c = [], [], self.clock
+        if c is not None:
+            c.capture = (marks, events)
+        try:
+            yield marks, events
+        finally:
+            if c is not None:
+                c.capture = None
+
+    def replaying(self, marks: list, events: list):
+        """A graph whose capture recorded ``marks`` (and ``events``, their
+        events, which the open call keeps alive until it is read) is about
+        to replay: an earlier call still holding them is read now, or
+        counted unread if the card has not passed it, and the open graph
+        call takes them."""
+        if not marks:
+            return
+        for c in [c for c in self.pending if any(m is marks for m, _ in c.graphs)]:
+            self.pending.remove(c)
+            if not self._read(c):
+                self._layers(c).unread += 1
+                self._release(c)
+        c = self.clock
+        if c is not None and c.events:
+            c.stamps.extend(marks)
+            c.graphs.append((marks, events))
+
+    def read_pending(self):
+        self.pending = [c for c in self.pending if not self._read(c)]
+
+    def _layers(self, c: Call) -> _Layers:
+        t = self.layers[c.traced].get((c.kind, c.path))
+        if t is None:
+            t = self.layers[c.traced][(c.kind, c.path)] = _Layers()
+        return t
+
+    def _close(self, c: Call):
+        if c.spoiled:
+            self._layers(c).unread += 1
+            self._release(c)
+            return
+        self._prev = c
+        if c.events:
+            self.pending.append(c)
+        else:
+            self._read(c)
+
+    def _read(self, c: Call) -> bool:
+        """Add call ``c``'s segments to the totals, unless the card has not
+        passed its last stamp yet (False)."""
+        st = c.stamps
+        if len(st) < 2:  # nothing stamped: nothing to add
+            self._release(c)
+            return True
+        if c.events and not _driver().passed(st[-1][1]):
+            return False
+        elapsed_s = _driver().elapsed_s if c.events else _host_elapsed_s
+        t = self._layers(c)
+        t.calls += 1
+        t.items += c.items
+        c.busy_s = 0.0
+        for (_, a), (seg, b) in zip(st, st[1:]):
+            if seg is not None:
+                dt = elapsed_s(a, b)
+                c.busy_s += dt
+                t.seconds[seg] = t.seconds.get(seg, 0.0) + dt
+        if c.interval is not None:
+            t.device_s += c.busy_s
+            t.interval_s += c.interval
+        self._release(c)
+        return True
+
+    def _release(self, c: Call):
+        """Call ``c``'s own events are free to be recorded again."""
+        for e in c.own:
+            if len(self.free) < FREE_EVENTS:
+                self.free.append(e)
+            else:
+                _driver().destroy(e)
+        c.stamps = c.graphs = c.own = ()
+
+    def _end_interval(self, now: int, traced: bool):
+        """The last call's host interval ends at this call's start, unless
+        a profiler started or stopped in between."""
+        c, self._prev = self._prev, None
+        if c is None or c.traced != traced:
+            return
+        c.interval = (now - c.t0) * 1e-9
+        if c.busy_s is not None:
+            t = self._layers(c)
+            t.device_s += c.busy_s
+            t.interval_s += c.interval
+
+    # ---- reading -------------------------------------------------------------
+
+    def layer_ms(self, kind: str) -> dict:
+        """``{path: {segment: mean ms an item}}`` of ``kind``'s calls made
+        without a profiler."""
+        self.read_pending()
+        return {p: t.as_dict()["ms"] for (k, p), t in self.layers[False].items() if k == kind}
+
+    def records(self) -> dict:
+        """Everything, as a plain dict: under ``untraced`` and ``traced``,
+        ``spans`` ({name: {"count", "seconds"}}), ``counters`` and
+        ``layers`` ({kind: {path: totals}}, each with ``ms``, the mean ms
+        of each segment an item, and ``idle``, the share of the host
+        intervals in % that no segment covers); and ``ring``, the newest
+        spans."""
+        self.read_pending()
+        out = {}
+        for traced, key in ((False, "untraced"), (True, "traced")):
+            layers = {}
+            for (kind, path), t in self.layers[traced].items():
+                layers.setdefault(kind, {})[path] = t.as_dict()
+            out[key] = {
+                "spans": {n: {"count": c, "seconds": ns * 1e-9}
+                          for n, (c, ns) in sorted(self.spans[traced].items())},
+                "counters": dict(sorted(self.counters[traced].items())),
+                "layers": layers,
+            }
+        out["ring"] = [{"serial": s, "name": n, "parent": p, "start_s": t0 * 1e-9,
+                        "seconds": dt * 1e-9, "traced": tr}
+                       for s, n, p, t0, dt, tr in self.ring]
+        return out
+
+
+REGISTRY = Registry()
+
+
+def span(name: str):
+    """A span of the port's host work (:class:`Registry`)."""
+    return REGISTRY.span(name)
+
+
+def count(name: str, n: int = 1):
+    REGISTRY.count(name, n)
+
+
+def call(name: str, kind: str, items: int):
+    return REGISTRY.call(name, kind, items)
+
+
+def mark(segment: str):
+    """End the open dispatch's or frame's layer ``segment`` here."""
+    REGISTRY.mark(segment)
+
+
+def mark_start():
+    """Start a layer segment here, ending none (an iteration's start)."""
+    REGISTRY.mark(None)
+
+
+def records() -> dict:
+    return REGISTRY.records()

@@ -756,6 +756,21 @@ def _graph_fixture(dev, grad_dtype="float32", n=3000, w=176, h=104):
     return state, tx.init(state.params), tx, cams, images, cfg
 
 
+def _registry_count(group, name):
+    """A span's count or a counter of the profiling registry, under a
+    profiler or not."""
+    from gsjax_torch.utils.profiling import records
+
+    rec = records()
+    got = [rec[k][group].get(name, 0) for k in ("untraced", "traced")]
+    return sum(g["count"] if isinstance(g, dict) else g for g in got)
+
+
+def _replays():
+    return (_registry_count("spans", "graph.first_replay")
+            + _registry_count("spans", "graph.replay"))
+
+
 def _run_both(state, opt, graphed, eager, calls):
     """``calls`` (argument tuples) through ``graphed`` from the current
     state, then through ``eager`` from the same state restored: each run's
@@ -803,18 +818,18 @@ def test_scan_backend_steps_run_eager():
     its steps run eager on the card, counted as such, and never capture."""
     import dataclasses
 
-    from gsjax_torch.train.step import STEP_PATHS, make_train_step
+    from gsjax_torch.train.step import make_train_step
 
     dev = _cuda()
     state, opt, tx, cams, images, cfg = _graph_fixture(dev, n=500, w=64, h=48)
     cfg = dataclasses.replace(cfg, settings=dataclasses.replace(
         cfg.settings, backend="scan", max_splats_per_tile=1024))
     step = make_train_step(tx, cams, images, cfg)
-    before = dict(STEP_PATHS)
+    before = _registry_count("counters", "train.eager")
     for i in range(2):
         state, opt, m = step(state, opt, i)
     assert np.isfinite(float(m["loss"])) and step.graphs.captures == 0
-    assert STEP_PATHS["eager"] - before["eager"] == 2
+    assert _registry_count("counters", "train.eager") - before == 2
 
 
 @pytest.mark.cuda
@@ -829,13 +844,14 @@ def test_graph_replays_count_their_launches():
     step = make_train_step(tx, cams, images, cfg)
     before = (cc.composite_fwd.launches, cc.composite_bwd.launches,
               cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
+    replays = _replays()
     for i in range(4):
         state, opt, _ = step(state, opt, i % 3)
     got = (cc.composite_fwd.launches, cc.composite_bwd.launches,
            cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
     assert tuple(g - b for g, b in zip(got, before)) == (4, 4, 4, 0)
-    entry = next(iter(step.graphs.entries.values()))[1]
-    assert entry[3].replays == 3  # the first call was the warm-up
+    # the first call was the warm-up
+    assert _replays() - replays == 3
 
 
 @pytest.mark.cuda

@@ -281,6 +281,13 @@ def test_train_cli_runs_and_refuses_what_is_not_ported(scene_dir, tmp_path, capf
     # on the CPU the plain versions run: no kernel launch is counted
     assert last["launches"] == {"composite_infer": 0, "composite_fwd": 0, "composite_bwd": 0}
     assert last["capacity"] == state.capacity >= 128
+    # the profiling registry's counters, spans and layer clock: every step
+    # ran op by op on the CPU (the scan backend: no kernel's own segments)
+    assert last["step_paths"] == {"graph": 0, "capture": 0, "eager": 20}
+    assert last["graph_captures"] == {"count": 0, "seconds": 0.0}
+    assert {"dispatch", "dispatch.prepare", "dispatch.eager", "frame"} <= set(last["spans"])
+    assert list(last["layers"]["train"]["eager"]) == ["prep", "composite_fwd", "prep_bwd",
+                                                      "adam", "stats"]
     for name in ("chkpnt10.npz", os.path.join("point_cloud", "iteration_20", "point_cloud.ply")):
         assert os.path.exists(os.path.join(out, name))
     assert any(r.get("event") == "densify" for r in _log(out))
