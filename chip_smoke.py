@@ -10,7 +10,9 @@ Phases, in order; any failure exits nonzero:
    source for sm_90a, side by side, into ``build/gsjax_torch/``);
 3. each kernel against its plain PyTorch version on the 50,000-gaussian
    512x512 scene and on one frame of the 1M-gaussian 1080p scene, with the
-   tolerances stated below; ``composite_fwd``'s image against
+   tolerances stated below (at 1080p also ``preprocess_infer``, the primal
+   preprocess, against ``preprocess_plain``: :func:`check_preprocess`);
+   ``composite_fwd``'s image against
    ``composite_infer``'s, and both against the forward's check instance,
    its walk without the per-warp cull (``composite_fwd_check``: colors, T
    and ``n_contrib``, bit for bit), with the forward's warp-level work
@@ -28,7 +30,8 @@ Phases, in order; any failure exits nonzero:
    instance's;
 4. the render path: the 1M-gaussian 1080p scene rendered through
    ``make_render_fn`` (its captured CUDA graph) for 40 frames from 4
-   camera poses, launch counts reset just before and read just after; then
+   camera poses, launch counts reset just before and read just after
+   (``composite_infer`` and ``preprocess_infer`` once a frame); then
    per-phase and per-kernel times with CUDA events, the frame's deepest
    tile, and the graphed frame against the eager one (``eager=True``), bit
    for bit at the 4 poses, then 40 frames of each in turns;
@@ -166,7 +169,10 @@ Phases, in order; any failure exits nonzero:
     ``launches_scaled`` / ``max_abs_err_scaled``: 14b's; rows 1-3's
     ``launches_sharded``: 13a's counted launches over both ranks, and
     ``max_abs_err_sharded``: their error on a rank's strip; rows 2-3's
-    ``launches_drop_ab``: 14c's two arms), the card line, and last the
+    ``launches_drop_ab``: 14c's two arms; row 4, ``preprocess_infer``:
+    phase 4's launches, its graphed time and ``ms_eager``, and the byte
+    bound over every slot's SH row and over the used slots' only), the
+    card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or gsjax. Exits nonzero with no result when CUDA is
@@ -321,6 +327,19 @@ PRNG_SHAPES = [(3,), (1001,), (2, 1 << 20, 3)]
 NORMAL_ULP = 0
 PRNG_RUN_ITERS = 120  # 15b: the random-background training run
 
+# preprocess_infer against preprocess_plain over the used slots (radii >
+# 0): the kernel follows the plain version's operation order (it equals it
+# bit for bit on the port's K = 16 rows, tests/test_torch_cuda.py), so
+# float fields are held to a few ulp and colors and opacities to one f16
+# step; integer fields are equal over every slot. The slots whose bits
+# differ are logged.
+PREP_RTOL = 1e-6
+# its bytes a slot: xyz, scale, quaternion, opacity, the active flag (45 B)
+# read and the Splats written (64 B), and the SH row (16 x 3 float32, 192 B)
+# read only for the used slots; its float32 operations a used slot, an
+# estimate from the source (projection, covariance, EWA, conic, radius,
+# rectangles, degree-3 SH)
+PREP_SLOT_BYTES, PREP_SH_BYTES, PREP_SLOT_OPS = 45 + 64, 192, 300
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
 TRAIN_STEPS = 48  # in turns at grad_dtype float32 and bfloat16: 6 per pose each
@@ -553,6 +572,94 @@ def time_cuda(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def time_graph(fn, reps, rounds=5):
+    """Median ms of one ``fn()`` call: ``reps`` calls captured in one CUDA
+    graph, replayed ``rounds`` times between CUDA events, so the host's
+    launch time is not counted (a frame's graph runs its kernels so)."""
+    import torch
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(out)
+
+
+def _f16_steps(got, want):
+    """|got - want| in f16 steps at the larger magnitude (2^-24 below 2^-14)."""
+    import torch
+
+    mag = torch.clamp_min(torch.maximum(got.abs(), want.abs()).double(), 2.0 ** -14)
+    return ((got.double() - want.double()).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 10))
+
+
+def check_preprocess(tag, state, rc, settings):
+    """``preprocess_infer`` against ``preprocess_plain`` on one frame's
+    inputs (``activated(state)``, its SH degree and active mask): integer
+    fields equal over every slot; over the used slots (radii > 0) float
+    fields within PREP_RTOL, colors and opacities within one f16 step, and
+    the slots whose bits differ logged. Then each one's graphed ms a call
+    (:func:`time_graph`). Returns (the float fields' largest relative
+    error, kernel ms, plain ms, used slots)."""
+    import torch
+
+    from gsjax_torch.models.gaussians import activated
+    from gsjax_torch.ops.projection import preprocess_infer, preprocess_plain
+
+    ins = activated(state)
+    kw = dict(active_mask=state.active, opacity_aware_radius=settings.opacity_aware_radius)
+
+    def kern():
+        return preprocess_infer(*ins, rc, state.active_sh_degree, **kw)
+
+    def plain():
+        return preprocess_plain(*ins, rc, state.active_sh_degree, **kw)
+
+    k, p = kern(), plain()
+    used = p.radii > 0
+    n_used = int(used.sum())
+    for f in ("radii", "rect_min", "rect_max", "tiles_touched"):
+        if not torch.equal(getattr(k, f), getattr(p, f)):
+            bad = (getattr(k, f) != getattr(p, f)).reshape(used.shape[0], -1).any(1)
+            raise AssertionError(f"{tag} preprocess: {f} differs in {int(bad.sum())} slots")
+    err, bits = 0.0, {}
+    for f in ("means2d", "depths", "conics", "opacities", "colors"):
+        a, b = getattr(k, f)[used], getattr(p, f)[used]
+        bits[f] = int((a.view(torch.int32) != b.view(torch.int32)).reshape(n_used, -1)
+                      .any(1).sum())
+        if f in ("opacities", "colors"):
+            steps = float(_f16_steps(a, b).max()) if n_used else 0.0
+            if steps > 1.0:
+                raise AssertionError(f"{tag} preprocess: {f} {steps} f16 steps off")
+            continue
+        rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max()) if n_used else 0.0
+        if rel > PREP_RTOL:
+            raise AssertionError(f"{tag} preprocess: {f} relative error {rel:.3e}")
+        err = max(err, rel)
+    ms = time_graph(kern, 20)
+    plain_ms = time_graph(plain, 5)
+    log(f"  {tag} preprocess_infer vs preprocess_plain: {used.numel()} slots, {n_used} used; "
+        f"integer fields equal; used slots whose bits differ {json.dumps(bits)}; largest "
+        f"relative error {err:.3e}; graphed ms a call: kernel {ms:.4f}, plain {plain_ms:.3f}")
+    return err, ms, plain_ms, n_used
+
+
 def phase_compare(device):
     """Kernel vs plain version on the 50k-gaussian 512x512 scene (the
     1080p comparison runs in :func:`main_path`, on its inputs). Returns the
@@ -663,13 +770,14 @@ def frame_phase_ms(state, rc, settings, bg):
 def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
               max_pairs=BENCH_MAX_PAIRS):
     """The 1M-gaussian 1080p scene through make_render_fn, and the three
-    kernels against their plain versions on its first frame. Returns the
-    kernels' entries of the ``kernels`` line (launches of the training
-    kernels are filled in by :func:`train_path`), the scene, its cameras
-    and settings, and the first frame's ``tile_start``."""
+    compositing kernels and the primal preprocess against their plain
+    versions on its first frame. Returns the kernels' entries of the
+    ``kernels`` line (the compositing kernels', whose training launches are
+    filled in by :func:`train_path`, then ``preprocess_infer``'s), the
+    scene, its cameras and settings, and the first frame's ``tile_start``."""
     import torch
 
-    from gsjax_torch.ops import cuda_composite
+    from gsjax_torch.ops import cuda_composite, projection
     from gsjax_torch.ops.cuda_composite import (
         PACK_W, composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
         composite_infer_plain, reduce_pair_grads,
@@ -688,6 +796,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     torch.cuda.synchronize()
 
     cuda_composite.composite_infer.launches = 0
+    projection.preprocess_infer.launches = 0
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(MAIN_FRAMES)]
     outs = []
@@ -699,6 +808,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = cuda_composite.composite_infer.launches
+    prep_launches = projection.preprocess_infer.launches
 
     frame_ms = [a.elapsed_time(b) for a, b in ev]
     for i, (img, dropped) in enumerate(outs):
@@ -706,9 +816,9 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
             raise AssertionError(f"frame {i}: {int(dropped)} pairs dropped")
         if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"frame {i}: bad image {tuple(img.shape)} or non-finite")
-    if launches != MAIN_FRAMES:
-        raise AssertionError(f"composite_infer launched {launches} times for "
-                             f"{MAIN_FRAMES} frames")
+    if (launches, prep_launches) != (MAIN_FRAMES, MAIN_FRAMES):
+        raise AssertionError(f"composite_infer launched {launches} times and "
+                             f"preprocess_infer {prep_launches} for {MAIN_FRAMES} frames")
     med = statistics.median(frame_ms)
     p75 = statistics.quantiles(frame_ms, n=4)[2]
     log(f"  {MAIN_FRAMES} frames from {len(rcams)} poses, num_dropped 0, finite")
@@ -721,6 +831,8 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     with torch.no_grad():
         phases, cache = frame_phase_ms(state, rcams[0], settings, bg)
         log("  phase ms: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+        prep_err, prep_ms, prep_plain_ms, n_used = check_preprocess(
+            "1080p", state, rcams[0], settings)
 
         # kernel vs plain version at the main path's shapes
         b = cache["bins"]
@@ -787,6 +899,15 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
             ("composite_bwd", 754, 0, err_b, bwd_ms, bwd_plain_ms, n_live),
         )
     ]
+    # the primal preprocess: every slot's inputs and outputs, and the SH rows
+    # of every slot (the bound) or of the used ones (what the kernel reads)
+    n_slots = state.capacity
+    prep = entry("preprocess_infer", "gsjax/ops/projection.py:preprocess (jnp, XLA-fused)",
+                 prep_launches, prep_err, prep_ms, prep_plain_ms,
+                 n_slots * (PREP_SLOT_BYTES + PREP_SH_BYTES), n_used * PREP_SLOT_OPS)
+    prep.update(ms_eager=phases["preprocess"], bound_ms_used=bound_ms(
+        n_slots * PREP_SLOT_BYTES + n_used * PREP_SH_BYTES, n_used * PREP_SLOT_OPS)[0],
+        slots=n_slots, used_slots=n_used)
     # the bf16 instance (grad_dtype "bfloat16", grad_reduce "sort"): 20
     # bytes a pair written instead of 36
     bound, by = bound_ms(*work_bf16, n_live)
@@ -800,7 +921,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     for e in entries:
         e["deepest_tile_pairs_bench1080"] = deepest
     graph_frames(state, rcams, render_fn, TrainConfig(settings=settings), bg)
-    return entries, state, rcams, settings, b.tile_start
+    return entries + [prep], state, rcams, settings, b.tile_start
 
 
 def deepest_tile(tile_start):

@@ -40,7 +40,8 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   backward marks ``utils.profiling``'s layer boundaries ``loss`` (at its
   entry), ``composite_bwd`` and ``reduce``.
 - :func:`load_library`, which builds each kernel of ``SOURCES`` (these
-  three and the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe`)
+  three, the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe` and
+  the primal preprocess of :func:`gsjax_torch.ops.projection.preprocess_infer`)
   with ``nvcc`` for ``sm_90a`` at first use into ``build/gsjax_torch/``
   (one ``nvcc`` per source, all started together) and loads them with
   ``ctypes``.
@@ -99,12 +100,18 @@ SOURCES = {
     "sol_probe.cu": {"gsjax_sol_probe":
                      [_P] * 3 + [_I] * 5 + [ctypes.POINTER(ctypes.c_float), _P],
                      "gsjax_sol_probe_info": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]},
+    # the primal preprocess (ops/projection.py:preprocess_infer)
+    "preprocess_infer.cu": {"gsjax_preprocess_infer":
+                            [_P] * 23 + [_I] * 5 + [ctypes.c_float, _I, _P]},
 }
 HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# flags of one source only: the preprocess contracts no multiply-add that the
+# plain version rounds twice (see its header)
+SOURCE_FLAGS = {"preprocess_infer.cu": ("-fmad=false",)}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -138,8 +145,8 @@ def build_library(verbose: bool = False) -> dict:
                 os.path.getmtime(path), newest_header):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, path]
+        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()),
+               *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, path]
         jobs[src] = (cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -6,7 +6,14 @@ forward.cu): near-plane cull at view z <= 0.2, EWA projection
 J W Sigma W^T J^T with the +0.3 px low-pass on the 2D covariance diagonal,
 3-sigma pixel radius from the larger eigenvalue, 16x16 touched-tile
 rectangles, and SH evaluation clamped at 0 after the +0.5 DC offset.
-Batched tensor ops over the Gaussian axis, in gsjax's operation order.
+
+:func:`preprocess_plain` is the definition: batched tensor ops over the
+Gaussian axis, in gsjax's operation order. :func:`preprocess_infer` launches
+the hand-written CUDA kernel ``csrc/preprocess_infer.cu``, which computes
+the same fields in one pass. :func:`preprocess` picks between them by the
+rule ``render`` applies to compositing: CUDA tensors with no gradient
+wanted take the kernel; under autograd, and for CPU tensors, the plain
+version runs. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,7 +22,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gsjax_torch.data.cameras import RenderCamera
+from gsjax_torch.data.cameras import CAMERA_TENSORS, RenderCamera
+from gsjax_torch.utils import profiling
 from gsjax_torch.utils.math import covariance6, safe_normalize
 from gsjax_torch.utils.sh import eval_sh
 
@@ -130,7 +138,40 @@ def preprocess(
 ) -> Splats:
     """Full preprocess. All inputs post-activation (exp scales, normalized
     quats, sigmoid opacities) — the CUDA rasterizer binding's contract
-    (reference: gaussian_renderer/__init__.py:85-93)."""
+    (reference: gaussian_renderer/__init__.py:85-93).
+
+    CUDA tensors with no gradient wanted (grad disabled, or no input that
+    requires grad) launch :func:`preprocess_infer`; everything else runs
+    :func:`preprocess_plain`."""
+    inputs = (means3d, scales, quats, opacities, shs, cov3d_precomp, colors_precomp,
+              means2d_offset, *(getattr(camera, k) for k in CAMERA_TENSORS))
+    wants_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+    fn = preprocess_infer if means3d.device.type == "cuda" and not wants_grad else preprocess_plain
+    return fn(means3d, scales, quats, opacities, shs, camera, sh_degree,
+              scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+              colors_precomp=colors_precomp, active_mask=active_mask,
+              means2d_offset=means2d_offset, opacity_aware_radius=opacity_aware_radius)
+
+
+def preprocess_plain(
+    means3d,
+    scales,
+    quats,
+    opacities,
+    shs,
+    camera: RenderCamera,
+    sh_degree: int,
+    *,
+    scale_modifier=1.0,
+    cov3d_precomp: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    active_mask: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+    opacity_aware_radius: bool = True,
+) -> Splats:
+    """:func:`preprocess` in batched tensor ops, differentiable: the
+    definition, on any device."""
     depths, means2d = project_points(means3d, camera)
     if means2d_offset is not None:
         means2d = means2d + means2d_offset
@@ -224,3 +265,82 @@ def preprocess(
         rect_max=rect_max,
         tiles_touched=tiles_touched.to(torch.int32),
     )
+
+
+def preprocess_infer(
+    means3d,
+    scales,
+    quats,
+    opacities,
+    shs,
+    camera: RenderCamera,
+    sh_degree: int,
+    *,
+    scale_modifier=1.0,
+    cov3d_precomp: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    active_mask: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+    opacity_aware_radius: bool = True,
+) -> Splats:
+    """:func:`preprocess_plain`'s fields from one launch of
+    ``csrc/preprocess_infer.cu`` on the current stream, for float32 CUDA
+    tensors; no gradient flows. ``shs`` is (N, K, 3) with K <= 16.
+
+    On the card at K = 16, the port's SH rows, the integer fields of
+    every slot and the float fields of every used slot (``radii > 0``)
+    equal the plain version's bit for bit; with fewer coefficients a row
+    the colors may differ by the SH sum's order, at most one f16 step.
+    Slots with ``radii == 0`` (``tiles_touched`` is 0 there too) feed no
+    pair, and their ``colors`` are 0 unless ``colors_precomp`` is given.
+
+    Each call counts in ``preprocess_infer.launches`` and in the registry's
+    counter ``preprocess.kernel`` (``utils.profiling``). ``launches`` is
+    the kernels that ran: ``utils.graphs`` adds a graph's launches at each
+    replay and takes back its capture's. The registry's counter counts
+    calls on the host: a graphed frame counts at its capture (once for its
+    eager warm-up, once for the capture itself) and never at a replay."""
+    dev = means3d.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"preprocess_infer runs on CUDA tensors, not {dev}")
+    n = means3d.shape[0]
+    k = shs.shape[1] if shs.dim() == 3 else 0
+    if colors_precomp is None and (shs.shape[0] != n or k > 16 or shs.shape[-1] != 3):
+        raise ValueError(f"shs must be (N, K <= 16, 3), got {tuple(shs.shape)}")
+
+    def arg(x, *shape, dtype=torch.float32):
+        if x is None:
+            return None
+        if x.dtype != dtype or x.device != dev:
+            raise ValueError(f"preprocess_infer takes {dtype} tensors on {dev}, "
+                             f"got {x.dtype} on {x.device}")
+        return x.reshape(*shape).contiguous()
+
+    ins = [arg(means3d, n, 3), arg(scales, n, 3), arg(quats, n, 4), arg(opacities, n),
+           arg(shs, n, k, 3) if colors_precomp is None else None,
+           arg(cov3d_precomp, n, 6), arg(colors_precomp, n, 3),
+           arg(active_mask, n, dtype=torch.bool), arg(means2d_offset, n, 2)]
+    ins += [arg(getattr(camera, name), -1) for name in CAMERA_TENSORS]
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    out = Splats(means2d=empty(n, 2), depths=empty(n), conics=empty(n, 3),
+                 colors=empty(n, 3), opacities=empty(n), radii=empty(n, dtype=i32),
+                 rect_min=empty(n, 2, dtype=i32), rect_max=empty(n, 2, dtype=i32),
+                 tiles_touched=empty(n, dtype=i32))
+    from gsjax_torch.ops.cuda_composite import _launch, load_library  # it imports TILE from here
+
+    k_used = min(k, (min(max(int(sh_degree), 0), 3) + 1) ** 2)
+    with torch.cuda.device(dev):
+        _launch("preprocess_infer", load_library().gsjax_preprocess_infer,
+                *(0 if x is None else x.data_ptr() for x in ins),
+                *(x.data_ptr() for x in out), n, k, k_used, camera.width, camera.height,
+                float(scale_modifier), int(bool(opacity_aware_radius)))
+    preprocess_infer.launches += 1
+    profiling.count("preprocess.kernel")
+    return out
+
+
+preprocess_infer.launches = 0

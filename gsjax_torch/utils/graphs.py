@@ -16,10 +16,11 @@ static buffers, keep the state's tensors in place, and key their graphs on
 those tensors' addresses as well as on what gsjax's ``jit`` keys its
 programs on. A capture that fails raises; nothing falls back to eager.
 
-The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``)
-are Python and run while a graph is captured, when nothing is launched.
-:class:`Graph` takes back what a capture added and adds it again at every
-replay, so the counts stay the number of kernels that ran.
+The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``
+and ``ops.projection.preprocess_infer``) are Python and run while a graph
+is captured, when nothing is launched. :class:`Graph` takes back what a
+capture added and adds it again at every replay, so the counts stay the
+number of kernels that ran.
 
 Spans of ``utils.profiling``'s registry time a graph's host work:
 ``graph.warm_up`` and ``graph.capture`` (their counts are the captures),
@@ -39,7 +40,7 @@ import time
 
 import torch
 
-from gsjax_torch.ops import cuda_composite
+from gsjax_torch.ops import cuda_composite, projection
 from gsjax_torch.utils import profiling
 
 # (wrapper, attribute) of every launch counter a captured function can move
@@ -50,6 +51,7 @@ _COUNTERS = (
     (cuda_composite.composite_bwd, "launches"),
     (cuda_composite.composite_bwd, "launches_bf16"),
     (cuda_composite.composite_bwd_counts, "launches"),
+    (projection.preprocess_infer, "launches"),
 )
 GRAPHS_KEPT = 2  # captured graphs a cache keeps (each holds its own memory pool)
 

@@ -1,4 +1,5 @@
-"""The CUDA compositing kernels on the card, against their plain versions.
+"""The CUDA kernels on the card (compositing, the probe, the primal
+preprocess), against their plain versions.
 
 Imports neither JAX nor gsjax nor the shared conftest helpers, so it runs
 where only the port is installed:
@@ -924,3 +925,232 @@ def test_capture_refuses_a_host_sync():
                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          timeout=120)
     assert "refused:" in res.stdout, (res.stdout, res.stderr[-2000:])
+
+
+# --------------------------------------------------------------------------
+# preprocess_infer (csrc/preprocess_infer.cu) against preprocess_plain
+# --------------------------------------------------------------------------
+
+PREP_INT_FIELDS = ("radii", "rect_min", "rect_max", "tiles_touched")
+PREP_FLOAT_FIELDS = ("means2d", "depths", "conics")
+# K < 16: the SH sum's order differs from the plain version's GEMV, a few
+# ulp of the sum, at most one f16 step of a color; the other fields follow
+# the plain version's order and are held to a few ulp
+PREP_RTOL = 1e-6
+# (sh_degree, K, optional inputs): inactive slots, slots behind the near plane,
+# footprints clamped at the frame's edge and opacities under 1/255 occur in every case
+PREP_CASES = {
+    "deg3": (3, 16, {}),
+    "deg0": (0, 16, {}),
+    "deg1": (1, 16, {}),
+    "deg2": (2, 16, {}),
+    "deg3_k9": (3, 9, {}),
+    "deg2_k4": (2, 4, {}),
+    "deg0_k1": (0, 1, {}),
+    "deg1_k5": (1, 5, {}),
+    "scale_modifier": (3, 16, {"scale_modifier": 0.6}),
+    "cov3d": (3, 16, {"cov3d_precomp": True}),
+    "colors": (3, 16, {"colors_precomp": True}),
+    "offset": (3, 16, {"means2d_offset": True}),
+    "no_mask": (3, 16, {"active_mask": False}),
+    "sigma3_radius": (3, 16, {"opacity_aware_radius": False}),
+}
+
+
+def _prep_inputs(case, dev, n=60000, seed=11):
+    """Seeded post-activation inputs for :data:`PREP_CASES`: 15% of the slots
+    inactive, view z in [-1, 9] (a tenth behind the near plane), means
+    beyond the frame's edges, wide scales, 10% of the opacities under
+    1/255; with ``cov3d_precomp``, 5% of its rows indefinite (det <= 0)."""
+    sh_degree, k, opts = PREP_CASES[case]
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-5, 5, n), rng.uniform(-4, 4, n), rng.uniform(-1, 9, n)], 1)
+    scales = np.exp(rng.normal(-2.2, 1.0, (n, 3)))
+    quats = rng.normal(0, 1, (n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    opac = np.where(rng.uniform(size=n) < 0.1, rng.uniform(0, 0.004, n), rng.uniform(0, 1, n))
+    shs = rng.normal(0, 0.3, (n, k, 3))
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    kw = {"active_mask": t(rng.uniform(size=n) < 0.85, torch.bool),
+          "opacity_aware_radius": opts.get("opacity_aware_radius", True),
+          "scale_modifier": opts.get("scale_modifier", 1.0)}
+    if opts.get("active_mask") is False:
+        kw["active_mask"] = None
+    if opts.get("cov3d_precomp"):
+        L = rng.normal(0, 0.08, (n, 3, 3))
+        cov = L @ L.transpose(0, 2, 1)
+        bad = rng.uniform(size=n) < 0.05
+        cov[bad] = rng.uniform(0.01, 0.1, (int(bad.sum()), 1, 3)) * np.diag([1.0, -1.0, 1.0])
+        kw["cov3d_precomp"] = t(cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]])
+    if opts.get("colors_precomp"):
+        kw["colors_precomp"] = t(rng.uniform(-0.2, 1.5, (n, 3)))
+    if opts.get("means2d_offset"):
+        kw["means2d_offset"] = t(rng.normal(0, 3, (n, 2)))
+    args = [t(a) for a in (means, scales, quats, opac, shs)]
+    return args, _camera(640, 360, dev), sh_degree, kw
+
+
+def _f16_steps(got, want):
+    """|got - want| in f16 steps at the larger magnitude (2^-24 below 2^-14)."""
+    mag = torch.maximum(got.abs(), want.abs()).double()
+    step = torch.exp2(torch.floor(torch.log2(torch.clamp_min(mag, 2.0 ** -14))) - 10)
+    return ((got.double() - want.double()).abs() / step).nan_to_num(0.0)
+
+
+def assert_preprocess_agrees(kern, plain, exact=False):
+    """Integer fields equal over all slots; over the used slots (radii > 0)
+    the float fields within :data:`PREP_RTOL`, opacities and colors within
+    one f16 step, or with ``exact`` every float field bit for bit."""
+    for f in PREP_INT_FIELDS:
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    used = plain.radii > 0
+    assert int(used.sum()) > 0 and int((~used).sum()) > 0
+    if exact:
+        for f in PREP_FLOAT_FIELDS + ("opacities", "colors"):
+            a, b = getattr(kern, f)[used], getattr(plain, f)[used]
+            differ = (a.view(torch.int32) != b.view(torch.int32)).reshape(a.shape[0], -1)
+            assert int(differ.any(1).sum()) == 0, (f, int(differ.any(1).sum()))
+        return
+    for f in PREP_FLOAT_FIELDS:
+        torch.testing.assert_close(getattr(kern, f)[used], getattr(plain, f)[used],
+                                   rtol=PREP_RTOL, atol=0.0, msg=f)
+    assert float(_f16_steps(kern.opacities[used], plain.opacities[used]).max()) <= 1.0
+    assert float(_f16_steps(kern.colors[used], plain.colors[used]).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PREP_CASES))
+def test_preprocess_kernel_matches_plain_version(case):
+    from gsjax_torch.ops import projection
+
+    dev = _cuda()
+    args, cam, deg, kw = _prep_inputs(case, dev)
+    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    with torch.no_grad():
+        kern = projection.preprocess(*args, cam, deg, **kw)
+    plain = projection.preprocess_plain(*args, cam, deg, **kw)
+    torch.cuda.synchronize()
+    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1)
+    # K = 16, the port's SH rows: the kernel sums in the plain version's
+    # order, so every field of a used slot is the plain version's bit for bit
+    assert_preprocess_agrees(kern, plain, exact=PREP_CASES[case][1] == 16)
+    used = plain.radii > 0
+    if kw.get("opacity_aware_radius"):  # some used slots bin nothing: chi <= 0
+        assert bool(((plain.tiles_touched == 0) & used).any())
+    if "cov3d_precomp" in kw:  # det <= 0 culls: its conic is [c, -b, a] / 1
+        c = plain.conics
+        assert bool((c[:, 0] * c[:, 2] - c[:, 1] * c[:, 1] <= 0).any())
+
+
+@pytest.mark.cuda
+def test_preprocess_under_autograd_runs_the_plain_version():
+    """Inputs that require grad keep the plain version on the card: no
+    launch, the same fields bit for bit, and gradients flow."""
+    from gsjax_torch.ops import projection
+
+    dev = _cuda()
+    args, cam, deg, kw = _prep_inputs("offset", dev, n=4000)
+    kw["means2d_offset"].requires_grad_(True)
+    before = projection.preprocess_infer.launches
+    sp = projection.preprocess(*args, cam, deg, **kw)
+    plain = projection.preprocess_plain(*args, cam, deg, **kw)
+    assert projection.preprocess_infer.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(sp, plain))
+    sp.means2d.sum().backward()
+    assert kw["means2d_offset"].grad is not None
+
+
+BENCH_POSES = [(0.0, (0.0, 0.0, 0.0)), (0.01, (0.02, 0.0, 0.0)),
+               (-0.01, (-0.02, 0.01, 0.0)), (0.0, (0.0, -0.02, 0.0))]
+
+
+def _view_scene(scene, dev, w=1920, h=1080):
+    """The view cells' scenes at their sizes, from the port's own scene
+    makers, with four render cameras at 1920x1080 and the budgets of the
+    inference probe over them (``train.loop.probe_rasterize_settings``,
+    every view). ``bench1080``: ``bench_scene.toy_state``, 1M gaussians in
+    2^20 slots at log-scale -5.2, from the bench poses. ``garden3m``:
+    ``synthetic_scene.build_gt_model``'s garden, 3M gaussians in 2^22
+    slots at coverage 1.3, every higher SH coefficient N(0, 0.03), from
+    the garden preset's dome rings."""
+    from gsjax_torch import synthetic_scene
+    from gsjax_torch.bench_scene import bench_camera, toy_state
+    from gsjax_torch.models.gaussians import create_empty
+    from gsjax_torch.train.loop import probe_rasterize_settings
+
+    if scene == "bench1080":
+        state = toy_state(1_000_000, 1 << 20, log_scale=-5.2, device=dev)
+        cams = [bench_camera(w, h, yaw, shift) for yaw, shift in BENCH_POSES]
+    else:
+        pts, scales, quats, opac, shs, _ = synthetic_scene.build_gt_model(
+            3_000_000, seed=5, coverage=1.3)
+        n = len(pts)
+        state = create_empty(1 << 22, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        with torch.no_grad():
+            p = state.params
+            for key, arr in (("xyz", pts), ("scaling", np.log(scales)), ("rotation", quats),
+                             ("opacity", np.log(opac / (1 - opac))[:, None]),
+                             ("features_dc", shs[:, :1])):
+                p[key][:n] = torch.from_numpy(np.ascontiguousarray(arr, np.float32)).to(dev)
+            p["features_rest"][:n] = 0.03 * torch.randn((n, 15, 3), generator=gen, device=dev)
+        state.active[:n] = True
+        state.active_sh_degree = 3
+        cams = synthetic_scene.make_cameras(4, w, h, 5, preset="garden_growth2")
+    settings = probe_rasterize_settings(state, cams, w, h, every_view=True)
+    return state, [c.to_render_camera(dev) for c in cams], settings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["bench1080", "garden3m"])
+def test_graphed_frame_of_benchmark_scene_equals_plain_frame(scene, monkeypatch):
+    """The view cells' scenes' frames through the graphed ``make_render_fn``
+    (the kernel) against the same frames with ``render`` on the plain
+    version: no channel more than one level apart (the view cells'
+    ``px_off`` 0), no pair dropped; the kernel launches once a frame, the
+    registry's counter counts the capture's two calls and no replay."""
+    from gsjax_torch.ops import projection, rasterize
+    from gsjax_torch.train.step import TrainConfig, make_render_fn
+
+    dev = _cuda()
+    state, rcams, settings = _view_scene(scene, dev)
+    cfg = TrainConfig(settings=settings)
+    bg = torch.zeros(3, device=dev)
+    poses = range(len(rcams))
+    fn = make_render_fn(cfg, with_stats=True, as_uint8=True)
+    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    frames = [fn(state, rcams[k], bg) for k in poses]
+    torch.cuda.synchronize()
+    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    assert tuple(a - b for a, b in zip(after, before)) == (len(poses), 2)
+    assert fn.graphs.captures == 1
+    monkeypatch.setattr(rasterize, "preprocess", projection.preprocess_plain)
+    plain_fn = make_render_fn(cfg, with_stats=True, as_uint8=True, eager=True)
+    for k, (img, dropped) in zip(poses, frames):
+        pimg, pdropped = plain_fn(state, rcams[k], bg)
+        assert int(dropped) == 0 and int(pdropped) == 0
+        off = (img.to(torch.int16) - pimg.to(torch.int16)).abs()
+        assert int((off > 1).sum()) == 0, (k, int((off > 1).sum()))
+        assert float(off.float().mean()) < 1e-3, (k, float(off.float().mean()))
+
+
+@pytest.mark.cuda
+def test_training_dispatch_launches_no_preprocess_kernel():
+    """A chained training dispatch (its capture and a replay) keeps
+    preprocess on the plain version: the kernel's counters stay."""
+    from gsjax_torch.ops import projection
+    from gsjax_torch.train.step import make_train_step_chained
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
+    chained = make_train_step_chained(tx, cams, images, cfg, 3)
+    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    for _ in range(2):
+        state, opt, m = chained(state, opt, [0, 2, 1])
+    torch.cuda.synchronize()
+    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    assert np.isfinite(float(m["loss_mean"])) and after == before
