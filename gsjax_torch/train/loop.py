@@ -61,6 +61,7 @@ from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams,
 from gsjax_torch.data.cameras import stack_render_cameras
 from gsjax_torch.eval.metrics import psnr
 from gsjax_torch.models.gaussians import activated, create_empty, grow_capacity
+from gsjax_torch.ops.cuda_composite import load_library
 from gsjax_torch.ops.projection import num_tiles, preprocess
 from gsjax_torch.ops.rasterize import RasterizeSettings
 from gsjax_torch.train.checkpoint import (
@@ -113,17 +114,58 @@ def default_rasterize_settings(
 @torch.no_grad()
 def _probe_initial_budgets(settings, state, train_cams, width, height, inference=False,
                            every_view=False):
-    """Measure the model's footprints on up to four cameras (every camera
-    with ``every_view``) and size the per-gaussian tile cap, the pair
-    budget, ``tier_frac`` and the expansion before the first render or
-    train step — gsjax's probe, same decisions. Training (``inference=False``) keeps twice the probed pairs
-    up to 1<<24 (densification adds gaussians, and the trainer reacts to
-    overflow); inference sizes the budget at 1.5x the probe."""
+    """Measure the model's footprints and size the per-gaussian tile cap,
+    the pair budget, ``tier_frac`` and the expansion before the first
+    render or train step — gsjax's probe, same decisions, with two
+    departures for training below. Training (``inference=False``) keeps
+    twice the probed pairs up to 1<<24 (densification adds gaussians, and
+    the trainer reacts to overflow); inference sizes the budget at 1.5x
+    the probe.
+
+    Inference measures four of the cameras, as gsjax's probe does (every
+    camera with ``every_view``). Training departs from gsjax twice, so
+    that no view of the training set drops a pair that the budgets could
+    hold:
+
+    - it measures every training camera (gsjax: four). Inside a scene the
+      views differ widely: a wall is 0.5 m from one camera and 4 m from the
+      next, and four cameras miss the widest footprint and the largest
+      pair count. A camera costs one primal preprocess and three reads to
+      the host;
+    - a compact expansion starts its tile cap at the frame's tile count
+      (rounded up to a power of two, :func:`frame_tile_cap`), where the
+      overflow reaction ends. The compact expansion sorts ``max_pairs``
+      entries whatever the cap, so the larger cap costs no sort slot, and a
+      footprint that widens during training is not cut at the probed one.
+      On a run that does not overflow it changes no pair and no tie order
+      (``_partition_rows`` clamps counts at the cap). A grid expansion keeps
+      the probed cap, which sets its slots.
+
+    The training probe is the span ``budgets.probe`` of
+    ``utils.profiling``'s registry, with the counters ``probe.views``
+    (cameras measured) and ``probe.pairs`` (their pair counts summed)."""
+    if inference:
+        return _probe(settings, state, train_cams, width, height, True, every_view)
+    if state.device.type == "cuda":
+        load_library()  # a checkout's first use builds every kernel: not the probe's time
+    with profiling.span("budgets.probe"):
+        return _probe(settings, state, train_cams, width, height, False, True)
+
+
+def frame_tile_cap(width: int, height: int) -> int:
+    """The frame's tile count rounded up to a power of two: the largest
+    tile cap a compact expansion needs, where one gaussian covers the
+    whole frame."""
+    tiles = -(-width // 16) * -(-height // 16)
+    return 2 ** int(np.ceil(np.log2(max(tiles, 2))))
+
+
+def _probe(settings, state, cams, width, height, inference, every_view):
     tiles_x, tiles_y = num_tiles(width, height)
     means3d, scales, quats, opac, shs = activated(state)
 
-    probe_cams = train_cams if every_view else train_cams[:: max(1, len(train_cams) // 4)][:4]
-    mt_need, pairs_need = 0, 0
+    probe_cams = cams if every_view else cams[:: max(1, len(cams) // 4)][:4]
+    mt_need, pairs_need, views, pairs_sum = 0, 0, 0, 0
     frac_le_min = np.ones(len(_TIER_KS))
     for c in probe_cams:
         rc = c.to_render_camera(device=state.device)
@@ -137,9 +179,15 @@ def _probe_initial_budgets(settings, state, train_cams, width, height, inference
         frac_le = torch.stack(
             [(counts <= k).to(torch.float32).mean() for k in _TIER_KS]
         )
+        pairs = int(counts.to(torch.int64).sum())
         mt_need = max(mt_need, int(counts.max()))
-        pairs_need = max(pairs_need, int(counts.to(torch.int64).sum()))
+        pairs_need = max(pairs_need, pairs)
         frac_le_min = np.minimum(frac_le_min, frac_le.cpu().numpy())
+        views += 1
+        pairs_sum += pairs
+    if not inference:
+        profiling.count("probe.views", views)
+        profiling.count("probe.pairs", pairs_sum)
     if mt_need == 0:
         return settings
     mt = int(
@@ -195,12 +243,14 @@ def _probe_initial_budgets(settings, state, train_cams, width, height, inference
     grid_slots = ca * max(2, mt_final // 4) + (cap - ca) * mt_final
     if grid_slots > 4 * max_pairs:
         expansion = "compact"
-    if (mt > settings.max_tiles_per_gauss or max_pairs > settings.max_pairs
+    if not inference and expansion == "compact":
+        mt_final = max(mt_final, frame_tile_cap(width, height))
+    if (mt_final > settings.max_tiles_per_gauss or max_pairs > settings.max_pairs
             or tier_frac != settings.tier_frac
             or expansion != settings.expansion):
         print(
-            f"budget probe: max tiles/gauss {mt_need} (cap "
-            f"{settings.max_tiles_per_gauss} -> {mt}), pairs {pairs_need} "
+            f"budget probe ({views} views): max tiles/gauss {mt_need} (cap "
+            f"{settings.max_tiles_per_gauss} -> {mt_final}), pairs {pairs_need} "
             f"(budget {settings.max_pairs} -> {max_pairs}), tier_frac "
             f"{settings.tier_frac} -> {tier_frac}, expansion {expansion}"
         )
@@ -630,8 +680,7 @@ def training(
         grow_budget = budget_dropped > 0 and settings.max_pairs < (1 << 26)
         # the tile cap may grow until one gaussian can cover the whole
         # frame, or until the dense expansion grid passes ~64M slots
-        tiles_total = -(-width // 16) * -(-height // 16)
-        mt_frame_cap = 2 ** int(np.ceil(np.log2(max(tiles_total, 2))))
+        mt_frame_cap = frame_tile_cap(width, height)
 
         def _expansion_slots(mt):
             tf = settings.tier_frac

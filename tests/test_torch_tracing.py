@@ -362,7 +362,8 @@ def test_every_new_reader_has_its_benchmark_entry():
     for name, (kind, _) in READERS.items():
         m = entries[name]
         assert m["moves"] == {"train": "train_step_ms", "view": "frame_ms"}[kind]
-        assert m["workloads"] == [f"bench1080.{kind}", f"garden3m.{kind}"]
+        assert m["workloads"] == [f"bench1080.{kind}", f"garden3m.{kind}"] + (
+            ["room1m5.train"] if kind == "train" else [])
         assert m["source"] == ("host_clock" if name.startswith("host_") else "device_trace")
 
 
