@@ -11,7 +11,10 @@ Phases, in order; any failure exits nonzero:
 3. each kernel against its plain PyTorch version on the 50,000-gaussian
    512x512 scene and on one frame of the 1M-gaussian 1080p scene, with the
    tolerances stated below (at 1080p also ``preprocess_infer``, the primal
-   preprocess, against ``preprocess_plain``: :func:`check_preprocess`);
+   preprocess, against ``preprocess_plain``: :func:`check_preprocess`; and
+   its backward ``preprocess_bwd`` against autograd over
+   ``preprocess_plain`` and against ``preprocess_vjp_plain`` at SH degrees
+   0-3: :func:`check_preprocess_bwd`);
    ``composite_fwd``'s image against
    ``composite_infer``'s, and both against the forward's check instance,
    its walk without the per-warp cull (``composite_fwd_check``: colors, T
@@ -31,7 +34,8 @@ Phases, in order; any failure exits nonzero:
 4. the render path: the 1M-gaussian 1080p scene rendered through
    ``make_render_fn`` (its captured CUDA graph) for 40 frames from 4
    camera poses, launch counts reset just before and read just after
-   (``composite_infer`` and ``preprocess_infer`` once a frame); then
+   (``composite_infer`` and ``preprocess_infer`` once a frame,
+   ``preprocess_bwd`` never); then
    per-phase and per-kernel times with CUDA events, the frame's deepest
    tile, and the graphed frame against the eager one (``eager=True``), bit
    for bit at the 4 poses, then 40 frames of each in turns;
@@ -171,7 +175,10 @@ Phases, in order; any failure exits nonzero:
     ``max_abs_err_sharded``: their error on a rank's strip; rows 2-3's
     ``launches_drop_ab``: 14c's two arms; row 4, ``preprocess_infer``:
     phase 4's launches, its graphed time and ``ms_eager``, and the byte
-    bound over every slot's SH row and over the used slots' only), the
+    bound over every slot's SH row and over the used slots' only; row 5,
+    ``preprocess_bwd``: phase 5's launches, one a step, its graphed time,
+    autograd's backward through ``preprocess_plain`` as ``plain_ms``, and
+    the byte bound over every slot and over the used slots), the
     card line, and last the
     ``{"ok": true, "device": ...}`` line.
 
@@ -340,6 +347,20 @@ PREP_RTOL = 1e-6
 # estimate from the source (projection, covariance, EWA, conic, radius,
 # rectangles, degree-3 SH)
 PREP_SLOT_BYTES, PREP_SH_BYTES, PREP_SLOT_OPS = 45 + 64, 192, 300
+# preprocess_bwd against autograd over preprocess_plain and against
+# preprocess_vjp_plain at every SH degree, on the bench scene with random
+# rotations and higher SH coefficients N(0, 0.1), gradients on the used
+# slots (tests/test_torch_cuda.py's BWD_TOL, the reasons there): every
+# element within PREP_BWD_SLOT of its slot's largest term in its group plus
+# PREP_BWD_GROUP of the group's largest, each group's norm of the
+# difference within PREP_BWD_NORM of its norm. Its bytes a slot: the 9
+# incoming gradients read and the 61 gradient floats written (280 B); where
+# a gradient comes in, xyz, scale, quaternion and opacity (32 B) and the SH
+# row (192 B at K = 16) read; the bound counts them for every slot (516 B),
+# the used bound for the used slots. Its float32 operations a used slot: an
+# estimate from the source.
+PREP_BWD_SLOT, PREP_BWD_GROUP, PREP_BWD_NORM = 2e-3, 1e-6, 1e-5
+PREP_BWD_BYTES, PREP_BWD_USED_BYTES, PREP_BWD_OPS = 36 + 244, 32 + 192, 700
 BENCH_MAX_PAIRS = 3_538_944
 MAIN_FRAMES = 40  # 10 per pose; the 75th percentile has 10 frames beyond it
 TRAIN_STEPS = 48  # in turns at grad_dtype float32 and bfloat16: 6 per pose each
@@ -767,6 +788,98 @@ def frame_phase_ms(state, rc, settings, bg):
     return phases, cache
 
 
+def _grad_errors(got, want):
+    """Per group (the six gradients): the largest element error over its
+    slot's largest |want| plus PREP_BWD_GROUP of the group's largest, as a
+    share of PREP_BWD_SLOT (<= 1 passes), and the norm of the difference
+    over the norm."""
+    import torch
+
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        if not bool(torch.isfinite(a).all()):
+            return None
+        d = (a - b).abs().reshape(a.shape[0], -1)
+        row = b.abs().reshape(b.shape[0], -1).amax(1, keepdim=True)
+        slot = float(((d - PREP_BWD_GROUP * float(row.max())) / row.clamp_min(1e-300)).max())
+        out.append((max(slot, 0.0), float((a - b).norm() / b.norm().clamp_min(1e-300))))
+    return out
+
+
+def check_preprocess_bwd(tag, state, rc):
+    """``preprocess_bwd`` against autograd over ``preprocess_plain`` and
+    against ``preprocess_vjp_plain`` at SH degrees 0-3, on ``state``'s
+    activated inputs with random rotations and higher SH coefficients
+    N(0, 0.1) (copies; the state is not touched) and seeded gradients on
+    the used slots (radii > 0): PREP_BWD_* tolerances, zero-gradient slots
+    exact zeros, the offset's gradient means2d's. Then at degree 3 the
+    kernel's graphed ms a call (:func:`time_graph`) and autograd's backward
+    through the plain version alone (CUDA events, eager). Returns (the
+    largest norm error, kernel ms, autograd ms, used slots)."""
+    import torch
+
+    from gsjax_torch.models.gaussians import activated
+    from gsjax_torch.ops.projection import (
+        preprocess_bwd, preprocess_plain, preprocess_vjp_plain,
+    )
+
+    means, scales, _, opac, shs = (x.detach() for x in activated(state))
+    g = torch.Generator(device=means.device).manual_seed(22)
+    quats = torch.randn((means.shape[0], 4), generator=g, device=means.device)
+    quats = quats / quats.norm(dim=1, keepdim=True)
+    shs = shs.clone()
+    shs[:, 1:] = 0.1 * torch.randn(shs[:, 1:].shape, generator=g, device=means.device)
+    ins = [means.contiguous(), scales.contiguous(), quats, opac.contiguous(), shs]
+    worst = 0.0
+    for deg in range(4):
+        with torch.no_grad():
+            sp = preprocess_plain(*ins, rc, deg, active_mask=state.active)
+        used = (sp.radii > 0).to(torch.float32)
+        grads = tuple(scale * torch.randn(x.shape, generator=g, device=x.device)
+                      * (used[:, None] if x.dim() == 2 else used)
+                      for x, scale in ((sp.means2d, 1e-4), (sp.conics, 1e-3),
+                                       (sp.colors, 1e-4), (sp.opacities, 1e-4)))
+        kern = preprocess_bwd(*ins, rc, deg, grads)
+        leaves = [x.clone().requires_grad_(True) for x in ins]
+        off = torch.zeros((means.shape[0], 2), device=means.device, requires_grad=True)
+        sp2 = preprocess_plain(*leaves, rc, deg, means2d_offset=off)
+        outs = [sp2.means2d, sp2.conics, sp2.colors, sp2.opacities]
+        auto = torch.autograd.grad(outs, leaves + [off], grads, retain_graph=deg == 3)
+        mirror = preprocess_vjp_plain(*ins, rc, deg, grads)
+        for name, want in (("autograd", auto), ("preprocess_vjp_plain", mirror)):
+            errs = _grad_errors(kern, want)
+            if errs is None:
+                raise AssertionError(f"{tag} preprocess_bwd: non-finite gradients")
+            bad = [i for i, (slot, norm) in enumerate(errs)
+                   if slot > PREP_BWD_SLOT or norm > PREP_BWD_NORM]
+            if bad:
+                raise AssertionError(f"{tag} preprocess_bwd degree {deg} vs {name}: groups "
+                                     f"{bad} off: {errs}")
+            worst = max(worst, max(norm for _, norm in errs))
+            log(f"  {tag} preprocess_bwd vs {name}, SH degree {deg}: (slot error, norm "
+                f"error) per group {json.dumps(errs)}")
+        unused = used == 0
+        if not all(bool((k[unused] == 0).all()) for k in kern) or not torch.equal(
+                kern[5], grads[0]):
+            raise AssertionError(f"{tag} preprocess_bwd: zero slots or the offset differ")
+    n_used = int(used.sum())
+    ms = time_graph(lambda: preprocess_bwd(*ins, rc, 3, grads), 20)
+    evs = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.autograd.grad(outs, leaves + [off], grads, retain_graph=True)
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    plain_ms = statistics.median(a.elapsed_time(b) for a, b in evs[1:])
+    log(f"  {tag} preprocess_bwd: {means.shape[0]} slots, {n_used} used; largest norm error "
+        f"{worst:.3e}; kernel {ms:.4f} ms (graphed), autograd through preprocess_plain "
+        f"{plain_ms:.3f} ms")
+    return worst, ms, plain_ms, n_used
+
+
 def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
               max_pairs=BENCH_MAX_PAIRS):
     """The 1M-gaussian 1080p scene through make_render_fn, and the three
@@ -796,7 +909,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     torch.cuda.synchronize()
 
     cuda_composite.composite_infer.launches = 0
-    projection.preprocess_infer.launches = 0
+    projection.preprocess_infer.launches = projection.preprocess_bwd.launches = 0
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(MAIN_FRAMES)]
     outs = []
@@ -816,9 +929,11 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
             raise AssertionError(f"frame {i}: {int(dropped)} pairs dropped")
         if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"frame {i}: bad image {tuple(img.shape)} or non-finite")
-    if (launches, prep_launches) != (MAIN_FRAMES, MAIN_FRAMES):
-        raise AssertionError(f"composite_infer launched {launches} times and "
-                             f"preprocess_infer {prep_launches} for {MAIN_FRAMES} frames")
+    if (launches, prep_launches, projection.preprocess_bwd.launches) != (
+            MAIN_FRAMES, MAIN_FRAMES, 0):
+        raise AssertionError(f"composite_infer launched {launches} times, preprocess_infer "
+                             f"{prep_launches} and preprocess_bwd "
+                             f"{projection.preprocess_bwd.launches} for {MAIN_FRAMES} frames")
     med = statistics.median(frame_ms)
     p75 = statistics.quantiles(frame_ms, n=4)[2]
     log(f"  {MAIN_FRAMES} frames from {len(rcams)} poses, num_dropped 0, finite")
@@ -833,7 +948,9 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         log("  phase ms: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
         prep_err, prep_ms, prep_plain_ms, n_used = check_preprocess(
             "1080p", state, rcams[0], settings)
-
+    bwd_err, bwd_prep_ms, bwd_prep_plain_ms, bwd_used = check_preprocess_bwd(
+        "1080p", state, rcams[0])
+    with torch.no_grad():
         # kernel vs plain version at the main path's shapes
         b = cache["bins"]
         args = (b.tile_start, b.pair_gauss, cache["attrs"], tx, ty)
@@ -908,6 +1025,15 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     prep.update(ms_eager=phases["preprocess"], bound_ms_used=bound_ms(
         n_slots * PREP_SLOT_BYTES + n_used * PREP_SH_BYTES, n_used * PREP_SLOT_OPS)[0],
         slots=n_slots, used_slots=n_used)
+    # its backward: launches filled in by train_path; plain ms is autograd's
+    # backward through preprocess_plain at the same state
+    prep_bwd = entry("preprocess_bwd", "gsjax/ops/projection.py:preprocess's VJP (jnp, "
+                     "differentiated by XLA)", 0, bwd_err, bwd_prep_ms, bwd_prep_plain_ms,
+                     n_slots * (PREP_BWD_BYTES + PREP_BWD_USED_BYTES),
+                     bwd_used * PREP_BWD_OPS)
+    prep_bwd.update(bound_ms_used=bound_ms(
+        n_slots * PREP_BWD_BYTES + bwd_used * PREP_BWD_USED_BYTES, bwd_used * PREP_BWD_OPS)[0],
+        slots=n_slots, used_slots=bwd_used)
     # the bf16 instance (grad_dtype "bfloat16", grad_reduce "sort"): 20
     # bytes a pair written instead of 36
     bound, by = bound_ms(*work_bf16, n_live)
@@ -921,7 +1047,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     for e in entries:
         e["deepest_tile_pairs_bench1080"] = deepest
     graph_frames(state, rcams, render_fn, TrainConfig(settings=settings), bg)
-    return entries + [prep], state, rcams, settings, b.tile_start
+    return entries + [prep, prep_bwd], state, rcams, settings, b.tile_start
 
 
 def deepest_tile(tile_start):
@@ -1074,8 +1200,8 @@ def train_path(device, state, rcams, settings):
     bfloat16 (gsjax's default, rounded half up under ``grad_reduce``
     "sort"), each one's steps split in phases, and a trace of 4 more
     float32 steps. Returns the launch counts of (composite_infer,
-    composite_fwd, composite_bwd, composite_bwd's bf16 instances) in the
-    counted run."""
+    composite_fwd, composite_bwd, composite_bwd's bf16 instances,
+    preprocess_bwd) in the counted run."""
     import dataclasses
 
     import torch
@@ -1083,6 +1209,7 @@ def train_path(device, state, rcams, settings):
     from gsjax_torch.configs import OptimizationParams
     from gsjax_torch.data.cameras import stack_render_cameras
     from gsjax_torch.ops import cuda_composite as cc
+    from gsjax_torch.ops import projection
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_train_step
     from gsjax_torch.utils.profiling import device_summary, trace
@@ -1104,7 +1231,7 @@ def train_path(device, state, rcams, settings):
     torch.cuda.reset_peak_memory_stats()
 
     cc.composite_infer.launches = cc.composite_fwd.launches = cc.composite_bwd.launches = 0
-    cc.composite_bwd.launches_bf16 = 0
+    cc.composite_bwd.launches_bf16 = projection.preprocess_bwd.launches = 0
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(TRAIN_STEPS)]
     metrics = []
@@ -1118,7 +1245,8 @@ def train_path(device, state, rcams, settings):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = (cc.composite_infer.launches, cc.composite_fwd.launches,
-                cc.composite_bwd.launches, cc.composite_bwd.launches_bf16)
+                cc.composite_bwd.launches, cc.composite_bwd.launches_bf16,
+                projection.preprocess_bwd.launches)
 
     losses = [float(m["loss"]) for m in metrics]
     dropped = [int(m["num_dropped_pairs"]) for m in metrics]
@@ -1130,12 +1258,13 @@ def train_path(device, state, rcams, settings):
     first, last = statistics.mean(losses[:4]), statistics.mean(losses[-4:])
     if not last < first:
         raise AssertionError(f"loss did not fall: first 4 {first:.6f}, last 4 {last:.6f}")
-    want = (0, TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS // 2)
+    want = (0, TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS // 2, TRAIN_STEPS)
     if launches != want:
-        raise AssertionError(f"launches (infer, fwd, bwd, bwd bf16) {launches}, want {want}")
+        raise AssertionError(f"launches (infer, fwd, bwd, bwd bf16, preprocess_bwd) "
+                             f"{launches}, want {want}")
     log(f"  {TRAIN_STEPS} steps from {len(rcams)} poses: num_dropped 0, finite params; "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f} (mean of first 4 {first:.6f}, last 4 "
-        f"{last:.6f}); launches infer/fwd/bwd/bwd bf16 {launches}")
+        f"{last:.6f}); launches infer/fwd/bwd/bwd bf16/preprocess_bwd {launches}")
     by_dt = {dt: [t for t, d in zip(step_ms, order) if d == dt] for dt in steps}
     f32 = by_dt["float32"]
     log(f"  step ms (CUDA events, n={len(f32)}): median {statistics.median(f32):.3f}, "
@@ -2934,6 +3063,7 @@ def main() -> int:
         if n_launch is not None:
             e["launches"] = n_launch
     entries[2]["launches_bf16"] = launches[3]
+    entries[4]["launches"] = launches[4]
     del state
     phase_scan_vs_kernel(device)
     phase_cli(device)

@@ -40,8 +40,9 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   backward marks ``utils.profiling``'s layer boundaries ``loss`` (at its
   entry), ``composite_bwd`` and ``reduce``.
 - :func:`load_library`, which builds each kernel of ``SOURCES`` (these
-  three, the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe` and
-  the primal preprocess of :func:`gsjax_torch.ops.projection.preprocess_infer`)
+  three, the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe`, the
+  primal preprocess of :func:`gsjax_torch.ops.projection.preprocess_infer`
+  and its backward, :func:`gsjax_torch.ops.projection.preprocess_bwd`)
   with ``nvcc`` for ``sm_90a`` at first use into ``build/gsjax_torch/``
   (one ``nvcc`` per source, all started together) and loads them with
   ``ctypes``.
@@ -103,6 +104,9 @@ SOURCES = {
     # the primal preprocess (ops/projection.py:preprocess_infer)
     "preprocess_infer.cu": {"gsjax_preprocess_infer":
                             [_P] * 23 + [_I] * 5 + [ctypes.c_float, _I, _P]},
+    # its backward (ops/projection.py:preprocess_bwd)
+    "preprocess_bwd.cu": {"gsjax_preprocess_bwd":
+                          [_P] * 14 + [_I] * 4 + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]},
 }
 HEADERS = ("composite_blend.cuh",)
 NVCC_FLAGS = (

@@ -16,8 +16,8 @@ static buffers, keep the state's tensors in place, and key their graphs on
 those tensors' addresses as well as on what gsjax's ``jit`` keys its
 programs on. A capture that fails raises; nothing falls back to eager.
 
-The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``
-and ``ops.projection.preprocess_infer``) are Python and run while a graph
+The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``,
+``ops.projection.preprocess_infer`` and ``preprocess_bwd``) are Python and run while a graph
 is captured, when nothing is launched. :class:`Graph` takes back what a
 capture added and adds it again at every replay, so the counts stay the
 number of kernels that ran.
@@ -52,6 +52,7 @@ _COUNTERS = (
     (cuda_composite.composite_bwd, "launches_bf16"),
     (cuda_composite.composite_bwd_counts, "launches"),
     (projection.preprocess_infer, "launches"),
+    (projection.preprocess_bwd, "launches"),
 )
 GRAPHS_KEPT = 2  # captured graphs a cache keeps (each holds its own memory pool)
 

@@ -62,6 +62,42 @@ def sh_basis(dirs):
     )
 
 
+def sh_basis_vjp(dirs, g):
+    """The gradient at ``dirs`` ``(..., 3)`` of ``sum_j g_j * sh_basis(dirs)_j``
+    for ``g`` ``(..., K)``, K <= 16 (missing coefficients count as 0):
+    :func:`sh_basis`'s derivative, term by term."""
+    g = [g[..., j] if j < g.shape[-1] else None for j in range(16)]
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    # (coefficient, d/dx, d/dy, d/dz) of each basis function
+    terms = [
+        (1, None, -C1, None),
+        (2, None, None, C1),
+        (3, -C1, None, None),
+        (4, C2[0] * y, C2[0] * x, None),
+        (5, None, C2[1] * z, C2[1] * y),
+        (6, -2.0 * C2[2] * x, -2.0 * C2[2] * y, 4.0 * C2[2] * z),
+        (7, C2[3] * z, None, C2[3] * x),
+        (8, 2.0 * C2[4] * x, -2.0 * C2[4] * y, None),
+        (9, 6.0 * C3[0] * xy, 3.0 * C3[0] * (xx - yy), None),
+        (10, C3[1] * yz, C3[1] * xz, C3[1] * xy),
+        (11, -2.0 * C3[2] * xy, C3[2] * (4.0 * zz - xx - 3.0 * yy), 8.0 * C3[2] * yz),
+        (12, -6.0 * C3[3] * xz, -6.0 * C3[3] * yz, C3[3] * (6.0 * zz - 3.0 * xx - 3.0 * yy)),
+        (13, C3[4] * (4.0 * zz - 3.0 * xx - yy), -2.0 * C3[4] * xy, 8.0 * C3[4] * xz),
+        (14, 2.0 * C3[5] * xz, -2.0 * C3[5] * yz, C3[5] * (xx - yy)),
+        (15, 3.0 * C3[6] * (xx - yy), -6.0 * C3[6] * xy, None),
+    ]
+    out = [torch.zeros_like(x) for _ in range(3)]
+    for j, *d in terms:
+        if g[j] is None:
+            continue
+        for axis, dj in enumerate(d):
+            if dj is not None:
+                out[axis] = out[axis] + dj * g[j]
+    return torch.stack(out, dim=-1)
+
+
 def band_mask(k: int, degree: int, dtype, device):
     """1 for each of the first ``k`` coefficients whose band is at most
     ``degree``, else 0. Made on ``device`` from an ``arange`` (the band of

@@ -1,5 +1,5 @@
 """The CUDA kernels on the card (compositing, the probe, the primal
-preprocess), against their plain versions.
+preprocess and its backward), against their plain versions.
 
 Imports neither JAX nor gsjax nor the shared conftest helpers, so it runs
 where only the port is installed:
@@ -1047,21 +1047,255 @@ def test_preprocess_kernel_matches_plain_version(case):
 
 
 @pytest.mark.cuda
-def test_preprocess_under_autograd_runs_the_plain_version():
-    """Inputs that require grad keep the plain version on the card: no
-    launch, the same fields bit for bit, and gradients flow."""
+@pytest.mark.parametrize("case", ["cov3d", "colors"])
+def test_preprocess_under_autograd_runs_the_plain_version(case):
+    """Under autograd, a precomputed covariance or colors (the reference's
+    toggles) keeps the plain version on the card: no launch of either
+    kernel, the same fields bit for bit, autograd's own graph, and
+    gradients flow."""
+    from gsjax_torch.ops import projection
+
+    dev = _cuda()
+    args, cam, deg, kw = _prep_inputs(case, dev, n=4000)
+    kw["means2d_offset"] = torch.zeros((4000, 2), device=dev, requires_grad=True)
+    before = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    sp = projection.preprocess(*args, cam, deg, **kw)
+    plain = projection.preprocess_plain(*args, cam, deg, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(sp, plain))
+    assert "PreprocessTrain" not in type(sp.means2d.grad_fn).__name__
+    sp.means2d.sum().backward()
+    assert kw["means2d_offset"].grad is not None
+    torch.cuda.synchronize()
+    assert (projection.preprocess_infer.launches, projection.preprocess_bwd.launches) == before
+
+
+# --------------------------------------------------------------------------
+# preprocess_bwd (csrc/preprocess_bwd.cu) against autograd over
+# preprocess_plain and against preprocess_vjp_plain
+# --------------------------------------------------------------------------
+
+GRAD_GROUPS = ("means3d", "scales", "quats", "opacities", "shs", "means2d_offset")
+# (slot, group, norm) tolerances (assert_grads_close). The kernel sums in its
+# own order and forms the conic's step as -K G K, where autograd subtracts
+# adj(C) / det's two terms: float32 roundings, largest where a gradient
+# cancels. On the bench scene's used slots the norm of each group's
+# difference stays under 1e-6 of its norm on an H100; an element within 2e-3
+# of its slot's largest term in the group covers the quaternion's
+# safe_normalize backward, which loses its component along q.
+BWD_TOL = (2e-3, 1e-6, 1e-5)
+# the harsh inputs of PREP_CASES (slots at view z 0 and behind the near
+# plane with gradients 1e10 larger, needles up to 700:1): the kernel against
+# the closed form, which forms the same terms. Where the 2D covariance is ill
+# conditioned both are float32 noise: at a needle of condition 4e4 (c00 c11
+# / det) the float32 closed form is 0.5% off its float64 value, the kernel
+# 2.1% off the closed form on an H100. So a slot's tolerance grows by
+# BWD_COND_TOL x its condition, and the norm counts the slots under
+# BWD_COND_NORM.
+BWD_TOL_CASES = (5e-3, 1e-6, 1e-4)
+BWD_COND_TOL, BWD_COND_NORM = 1e-6, 1e3
+
+
+def assert_grads_close(got, want, slot_tol, group_tol, norm_tol, names=GRAD_GROUPS,
+                       cond=None):
+    """Each group: every element within ``slot_tol`` (plus BWD_COND_TOL x the
+    slot's ``cond``, where given) of its slot's largest |want| in the group
+    plus ``group_tol`` of the group's largest, and the group's norm of the
+    difference (over the slots whose ``cond`` is under BWD_COND_NORM) within
+    ``norm_tol`` of its norm."""
+    slack = torch.zeros(got[0].shape[0], 1, dtype=torch.float64)
+    keep = torch.ones(got[0].shape[0], dtype=torch.bool)
+    if cond is not None:
+        slack = BWD_COND_TOL * cond.double().cpu()[:, None]
+        keep = cond.cpu() < BWD_COND_NORM
+    for name, a, b in zip(names, got, want):
+        a, b = a.double().cpu(), b.double().cpu()
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        d = (a - b).abs().reshape(a.shape[0], -1)
+        row = b.abs().reshape(b.shape[0], -1).amax(1, keepdim=True)
+        excess = d - (slot_tol + slack) * row - group_tol * float(row.max())
+        assert float(excess.max()) <= 0.0, (name, int(excess.amax(1).argmax()),
+                                           float((d / row.clamp_min(1e-300)).max()))
+        assert float((a - b)[keep].norm()) <= norm_tol * float(b[keep].norm()), name
+
+
+def covariance_condition(means3d, scales, quats, camera, scale_modifier=1.0):
+    """c00 c11 / det of each slot's 2D covariance (with the low-pass), in
+    float64."""
+    import dataclasses
+
+    from gsjax_torch.data.cameras import CAMERA_TENSORS
+    from gsjax_torch.ops import projection
+
+    cam = dataclasses.replace(camera, **{k: getattr(camera, k).double() for k in CAMERA_TENSORS})
+    e = projection._ewa_terms(means3d.double(), projection.covariance6(
+        scales.double(), quats.double(), scale_modifier), cam)
+    c00, c11 = e.cov00 + projection.LOW_PASS, e.cov11 + projection.LOW_PASS
+    return (c00 * c11 / (c00 * c11 - e.cov01 ** 2)).abs()
+
+
+def bench_bwd_scene(dev, n=1_000_000, capacity=1 << 20, seed=0):
+    """The bench scene (``toy_state`` at log-scale -5.2) with what it lacks
+    for a backward at every degree: random rotations and higher SH
+    coefficients N(0, 0.1). Returns the state's activated inputs, its
+    active mask and a 1080p bench camera."""
+    from gsjax_torch.bench_scene import bench_camera, toy_state
+    from gsjax_torch.models.gaussians import activated
+
+    state = toy_state(n, capacity, seed=seed, log_scale=-5.2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        state.params["features_rest"][:n] = 0.1 * torch.randn((n, 15, 3), generator=g, device=dev)
+        state.params["rotation"][:n] = torch.randn((n, 4), generator=g, device=dev)
+        ins = [x.detach().contiguous() for x in activated(state)]
+    return ins, state.active, bench_camera(1920, 1080).to_render_camera(dev)
+
+
+def used_slot_grads(sp, seed):
+    """Incoming gradients of (means2d, conics, colors, opacities) as a
+    training step sends them: on the slots that feed pairs (radii > 0),
+    zero elsewhere; seeded normals at the reduction's scales."""
+    g = torch.Generator(device=sp.means2d.device).manual_seed(seed)
+    used = (sp.radii > 0).to(torch.float32)
+    return tuple(scale * torch.randn(x.shape, generator=g, device=x.device)
+                 * (used[:, None] if x.dim() == 2 else used)
+                 for x, scale in ((sp.means2d, 1e-4), (sp.conics, 1e-3), (sp.colors, 1e-4),
+                                  (sp.opacities, 1e-4)))
+
+
+def autograd_prep_grads(ins, cam, deg, grads, **kw):
+    """Autograd over ``preprocess_plain``: the gradients of the five inputs
+    and of a zero means2d offset."""
+    from gsjax_torch.ops.projection import preprocess_plain
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in ins]
+    off = torch.zeros((ins[0].shape[0], 2), dtype=ins[0].dtype, device=ins[0].device,
+                      requires_grad=True)
+    sp = preprocess_plain(*leaves, cam, deg, means2d_offset=off, **kw)
+    return torch.autograd.grad([sp.means2d, sp.conics, sp.colors, sp.opacities],
+                               leaves + [off], grads)
+
+
+@pytest.fixture(scope="module")
+def bench_bwd():
+    return bench_bwd_scene(_cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deg", [0, 1, 2, 3])
+def test_preprocess_bwd_kernel_matches_autograd_on_the_bench_scene(deg, bench_bwd):
+    """At 2^20 slots of the bench scene: the kernel against autograd over
+    ``preprocess_plain`` and against ``preprocess_vjp_plain`` at
+    :data:`BWD_TOL`; a slot with no incoming gradient gets exact zeros; one
+    launch, one host call counted."""
+    from gsjax_torch.ops import projection
+
+    ins, active, cam = bench_bwd
+    with torch.no_grad():
+        sp = projection.preprocess_plain(*ins, cam, deg, active_mask=active)
+    grads = used_slot_grads(sp, deg)
+    before = (projection.preprocess_bwd.launches,
+              _registry_count("counters", "preprocess.bwd_kernel"))
+    kern = projection.preprocess_bwd(*ins, cam, deg, grads)
+    torch.cuda.synchronize()
+    after = (projection.preprocess_bwd.launches,
+             _registry_count("counters", "preprocess.bwd_kernel"))
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1)
+    assert_grads_close(kern, autograd_prep_grads(ins, cam, deg, grads), *BWD_TOL)
+    assert_grads_close(kern, projection.preprocess_vjp_plain(*ins, cam, deg, grads), *BWD_TOL)
+    unused = sp.radii == 0
+    assert bool(unused.any()) and all(bool((k[unused] == 0).all()) for k in kern)
+    assert torch.equal(kern[5], grads[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deg3", "deg0", "deg1", "deg2", "deg3_k9", "deg2_k4",
+                                  "deg0_k1", "deg1_k5", "scale_modifier", "no_mask"])
+def test_preprocess_bwd_kernel_matches_closed_form(case):
+    """On :data:`PREP_CASES`' inputs, gradients on every slot (a fifth zero):
+    the kernel against ``preprocess_vjp_plain`` at :data:`BWD_TOL_CASES`,
+    scaled by each slot's covariance condition; the opacities' and the
+    offset's gradients bit for bit; zero-gradient slots exact zeros; the
+    incoming gradients as the reduction's column slices give the same bits."""
+    from gsjax_torch.ops import projection
+
+    dev = _cuda()
+    args, cam, deg, kw = _prep_inputs(case, dev)
+    n = args[0].shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((n, 9), generator=g, device=dev)
+    table[:, 2:5] *= 1e-3
+    table[::5] = 0.0
+    grads = (table[:, 0:2], table[:, 2:5], table[:, 6:9], table[:, 5])
+    sm = kw.get("scale_modifier", 1.0)
+    kern = projection.preprocess_bwd(*args, cam, deg, grads, scale_modifier=sm)
+    want = projection.preprocess_vjp_plain(*args, cam, deg, grads, scale_modifier=sm)
+    assert_grads_close(kern, want, *BWD_TOL_CASES,
+                       cond=covariance_condition(*args[:3], cam, sm))
+    assert torch.equal(kern[3], want[3]) and torch.equal(kern[5], grads[0])
+    assert all(bool((k[::5] == 0).all()) for k in kern)
+    dense = projection.preprocess_bwd(*args, cam, deg, tuple(x.contiguous() for x in grads),
+                                      scale_modifier=sm)
+    assert all(torch.equal(a, b) for a, b in zip(kern, dense))
+
+
+@pytest.mark.cuda
+def test_preprocess_train_takes_the_kernel_under_autograd():
+    """CUDA inputs under autograd route to ``preprocess_train``: the plain
+    version's fields bit for bit, and ``backward`` launches the kernel once,
+    with the gradients of ``preprocess_bwd`` on the same incoming ones."""
     from gsjax_torch.ops import projection
 
     dev = _cuda()
     args, cam, deg, kw = _prep_inputs("offset", dev, n=4000)
-    kw["means2d_offset"].requires_grad_(True)
-    before = projection.preprocess_infer.launches
-    sp = projection.preprocess(*args, cam, deg, **kw)
-    plain = projection.preprocess_plain(*args, cam, deg, **kw)
-    assert projection.preprocess_infer.launches == before
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    off = kw["means2d_offset"].clone().requires_grad_(True)
+    kw["means2d_offset"] = off
+    before = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    sp = projection.preprocess(*leaves, cam, deg, **kw)
+    assert "PreprocessTrain" in type(sp.means2d.grad_fn).__name__
+    with torch.no_grad():
+        plain = projection.preprocess_plain(*args, cam, deg, **kw)
     assert all(torch.equal(a, b) for a, b in zip(sp, plain))
-    sp.means2d.sum().backward()
-    assert kw["means2d_offset"].grad is not None
+    g = torch.Generator(device=dev).manual_seed(5)
+    grads = tuple(torch.randn(x.shape, generator=g, device=dev)
+                  for x in (sp.means2d, sp.conics, sp.colors, sp.opacities))
+    got = torch.autograd.grad([sp.means2d, sp.conics, sp.colors, sp.opacities],
+                              leaves + [off], grads)
+    want = projection.preprocess_bwd(*args, cam, deg, grads)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    after = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 2)
+
+
+@pytest.mark.cuda
+def test_graphed_chained_dispatch_equals_eager_and_launches_the_bwd_kernel_once_a_step():
+    """A graphed 25-step chained dispatch (its capture, then a replay)
+    against its eager run from the same state, bit for bit; each runs
+    ``preprocess_bwd`` once a step (a replay adds its 25 launches)."""
+    from gsjax_torch.ops import projection
+    from gsjax_torch.train.step import make_train_step_chained
+    from gsjax_torch.train.step import snapshot_differences as _differing
+
+    dev = _cuda()
+    state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
+    fns = [make_train_step_chained(tx, cams, images, cfg, 25, eager=e) for e in (False, True)]
+    calls = [([(i * 7 + j) % 3 for i in range(25)],) for j in range(2)]
+    counts = []
+
+    def counted(fn):
+        def run(state, opt, *a):
+            before = projection.preprocess_bwd.launches
+            out = fn(state, opt, *a)
+            torch.cuda.synchronize()
+            counts.append(projection.preprocess_bwd.launches - before)
+            return out
+        return run
+
+    (gm, gs), (em, es) = _run_both(state, opt, *(counted(f) for f in fns), calls)
+    assert _differing(gs, es) == []
+    assert all(torch.equal(gm[-1][k], em[-1][k]) for k in gm[-1])
+    assert counts == [25, 25, 25, 25] and fns[0].graphs.captures == 1
 
 
 BENCH_POSES = [(0.0, (0.0, 0.0, 0.0)), (0.01, (0.02, 0.0, 0.0)),
