@@ -890,7 +890,6 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     scene, its cameras and settings, and the first frame's ``tile_start``."""
     import torch
 
-    from gsjax_torch.ops import cuda_composite, projection
     from gsjax_torch.ops.cuda_composite import (
         PACK_W, composite_bwd, composite_bwd_plain, composite_fwd, composite_fwd_plain,
         composite_infer_plain, reduce_pair_grads,
@@ -898,6 +897,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
     from gsjax_torch.ops.projection import num_tiles
     from gsjax_torch.train.step import TrainConfig, make_render_fn
     from gsjax_torch.utils.profiling import bound_ms, bwd_work, composite_work
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
 
     log(f"phase 4: main path, {n} gaussians at {w}x{h}")
     state, rcams = bench_scene(device, n, capacity, w, h)
@@ -908,8 +908,7 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         render_fn(state, rc, bg)
     torch.cuda.synchronize()
 
-    cuda_composite.composite_infer.launches = 0
-    projection.preprocess_infer.launches = projection.preprocess_bwd.launches = 0
+    launched = launch_counts()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(MAIN_FRAMES)]
     outs = []
@@ -920,8 +919,8 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
         ev[i][1].record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = cuda_composite.composite_infer.launches
-    prep_launches = projection.preprocess_infer.launches
+    counts = launches_since(launched, ("composite_infer", "preprocess_infer", "preprocess_bwd"))
+    launches, prep_launches = counts["composite_infer"], counts["preprocess_infer"]
 
     frame_ms = [a.elapsed_time(b) for a, b in ev]
     for i, (img, dropped) in enumerate(outs):
@@ -929,11 +928,10 @@ def main_path(device, n=1_000_000, capacity=1 << 20, w=1920, h=1080,
             raise AssertionError(f"frame {i}: {int(dropped)} pairs dropped")
         if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"frame {i}: bad image {tuple(img.shape)} or non-finite")
-    if (launches, prep_launches, projection.preprocess_bwd.launches) != (
-            MAIN_FRAMES, MAIN_FRAMES, 0):
+    if (launches, prep_launches, counts["preprocess_bwd"]) != (MAIN_FRAMES, MAIN_FRAMES, 0):
         raise AssertionError(f"composite_infer launched {launches} times, preprocess_infer "
                              f"{prep_launches} and preprocess_bwd "
-                             f"{projection.preprocess_bwd.launches} for {MAIN_FRAMES} frames")
+                             f"{counts['preprocess_bwd']} for {MAIN_FRAMES} frames")
     med = statistics.median(frame_ms)
     p75 = statistics.quantiles(frame_ms, n=4)[2]
     log(f"  {MAIN_FRAMES} frames from {len(rcams)} poses, num_dropped 0, finite")
@@ -1208,11 +1206,10 @@ def train_path(device, state, rcams, settings):
 
     from gsjax_torch.configs import OptimizationParams
     from gsjax_torch.data.cameras import stack_render_cameras
-    from gsjax_torch.ops import cuda_composite as cc
-    from gsjax_torch.ops import projection
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_train_step
     from gsjax_torch.utils.profiling import device_summary, trace
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
 
     w, h = rcams[0].width, rcams[0].height
     log(f"phase 5: training path, {TRAIN_STEPS} steps of make_train_step, "
@@ -1230,8 +1227,7 @@ def train_path(device, state, rcams, settings):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    cc.composite_infer.launches = cc.composite_fwd.launches = cc.composite_bwd.launches = 0
-    cc.composite_bwd.launches_bf16 = projection.preprocess_bwd.launches = 0
+    launched = launch_counts()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(TRAIN_STEPS)]
     metrics = []
@@ -1244,9 +1240,8 @@ def train_path(device, state, rcams, settings):
         metrics.append(m)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = (cc.composite_infer.launches, cc.composite_fwd.launches,
-                cc.composite_bwd.launches, cc.composite_bwd.launches_bf16,
-                projection.preprocess_bwd.launches)
+    launches = tuple(launches_since(launched, ("composite_infer", "composite_fwd", "composite_bwd",
+                                               "composite_bwd_bf16", "preprocess_bwd")).values())
 
     losses = [float(m["loss"]) for m in metrics]
     dropped = [int(m["num_dropped_pairs"]) for m in metrics]
@@ -1886,8 +1881,8 @@ def phase_bridge(state, settings, device, w=1920, h=1080):
     import torch
 
     from gsjax_torch.bench_scene import bench_camera
-    from gsjax_torch.ops import cuda_composite
     from gsjax_torch.train.step import TrainConfig, make_render_fn
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
     from gsjax_torch.viewer.network_gui import ViewerBridge, _camera_from_message
 
     log(f"phase 12b: the SIBR bridge, 3 frames of the bench scene at {w}x{h}")
@@ -1911,7 +1906,7 @@ def phase_bridge(state, settings, device, w=1920, h=1080):
 
     render_fn = make_render_fn(TrainConfig(settings=settings))  # float, as the loop's
     torch.cuda.synchronize()
-    cuda_composite.composite_infer.launches = 0
+    launched = launch_counts()
     t = threading.Thread(target=client)
     t.start()
     try:
@@ -1923,7 +1918,7 @@ def phase_bridge(state, settings, device, w=1920, h=1080):
         t.join(timeout=60)
     finally:
         bridge.close()
-    launches = cuda_composite.composite_infer.launches
+    launches = launches_since(launched, ("composite_infer",))["composite_infer"]
     u8 = make_render_fn(TrainConfig(settings=settings), with_stats=True, as_uint8=True)
     checks = {"three replies": len(replies) == 3 and not t.is_alive(),
               "launches == frames": launches == len(msgs)}
@@ -1956,14 +1951,14 @@ def phase_local_viewer(state, device, frames=60, w=1920, h=1080, n=1_000_000):
     import torch
 
     from gsjax_torch.data.cameras import lookat_camera
-    from gsjax_torch.ops import cuda_composite
     from gsjax_torch.train.step import TrainConfig, make_render_fn, quantize
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
     from gsjax_torch.viewer.local_viewer import LocalViewer
 
     log(f"phase 12c: the local viewer, {frames} frames of the bench scene at {w}x{h}")
     viewer = LocalViewer(state, np.zeros(3, np.float32), port=0, device=device)
     torch.cuda.synchronize()
-    cuda_composite.composite_infer.launches = 0
+    launched = launch_counts()
     base = f"http://127.0.0.1:{viewer.start()}"
     eyes, times, sizes = [], [], []
     try:
@@ -1983,7 +1978,7 @@ def phase_local_viewer(state, device, frames=60, w=1920, h=1080, n=1_000_000):
             times.append((time.perf_counter() - t0) * 1e3)
     finally:
         viewer.stop()
-    launches = cuda_composite.composite_infer.launches
+    launches = launches_since(launched, ("composite_infer",))["composite_infer"]
     fn = viewer._fn_for(w, h)
     s = fn.settings
     direct = make_render_fn(TrainConfig(settings=s), with_stats=True)
@@ -2234,7 +2229,6 @@ def sharded_rank(spec):
 
     from gsjax_torch.configs import OptimizationParams
     from gsjax_torch.data.cameras import stack_render_cameras
-    from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.parallel import make_mesh, make_sharded_render, make_sharded_train_step
     from gsjax_torch.parallel.multihost import global_to_host_local, maybe_initialize, rank_device
     from gsjax_torch.parallel.shard import (
@@ -2245,6 +2239,7 @@ def sharded_rank(spec):
     )
     from gsjax_torch.train.optim import adam_moments, make_optimizer
     from gsjax_torch.train.step import TrainConfig, make_render_fn, make_train_step
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
 
     device = spec["device"]
     maybe_initialize(device=device)
@@ -2295,10 +2290,10 @@ def sharded_rank(spec):
                 torch.tensor([err_f, err_b], dtype=torch.float64)).tolist()
         render(local, rcams[0], bg)  # warm-up, outside the counted run
         sync()
-        cc.composite_infer.launches = 0
+        launched = launch_counts()
         frames = [timed(lambda rc=rc: render(local, rc, bg)) for rc in rcams]
-        out["render_launches"] = global_to_host_local(
-            torch.tensor(cc.composite_infer.launches)).tolist()
+        out["render_launches"] = global_to_host_local(torch.tensor(
+            launches_since(launched, ("composite_infer",))["composite_infer"])).tolist()
         out["frame_ms"] = [ms for _, ms in frames]
         out["render_dropped"] = [int(f[2]) for f, _ in frames]
         del local
@@ -2346,7 +2341,7 @@ def sharded_rank(spec):
     step = make_sharded_train_step(tx, mesh, cams, images, cfg)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    cc.composite_infer.launches = cc.composite_fwd.launches = cc.composite_bwd.launches = 0
+    launched = launch_counts()
     ms, step_ms = [], []
     for i, c in enumerate(order):
         (local, opt, m), t = timed(lambda c=c: step(local, opt, [c]))
@@ -2354,9 +2349,8 @@ def sharded_rank(spec):
         step_ms.append(t)
         if i == 0:  # the first step's gradients, as 0.1 x in Adam's first moment
             mu_first = gather_moments(opt, mesh)[0]
-    out["step_launches"] = global_to_host_local(torch.tensor(
-        [cc.composite_infer.launches, cc.composite_fwd.launches, cc.composite_bwd.launches]
-    )).tolist()
+    out["step_launches"] = global_to_host_local(torch.tensor(list(launches_since(
+        launched, ("composite_infer", "composite_fwd", "composite_bwd")).values()))).tolist()
     out["step_ms"] = step_ms
     out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
     out["losses"] = [m["loss"] for m in ms]
@@ -2665,11 +2659,11 @@ def phase_scaled_model(device, run, target=SCALE_TARGET, w=1920, h=1080,
 
     import torch
 
-    from gsjax_torch.ops import cuda_composite
     from gsjax_torch.ops.cuda_composite import composite_infer_plain
     from gsjax_torch.ops.projection import num_tiles
     from gsjax_torch.train.loop import probe_rasterize_settings
     from gsjax_torch.train.step import TrainConfig, make_render_fn
+    from gsjax_torch.utils.profiling import launches as launch_counts, launches_since
 
     lines = run_module("14b", ["gsjax_torch.scale_model", "-m", run["model"],
                                "--target", str(target)])
@@ -2693,14 +2687,14 @@ def phase_scaled_model(device, run, target=SCALE_TARGET, w=1920, h=1080,
         torch.cuda.reset_peak_memory_stats()
         ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in rcams]
-        cuda_composite.composite_infer.launches = 0
+        launched = launch_counts()
         outs = []
         for (a, z), rc in zip(ev, rcams):
             a.record()
             outs.append(render_fn(state, rc, bg))
             z.record()
         torch.cuda.synchronize()
-        launches = cuda_composite.composite_infer.launches
+        launches = launches_since(launched, ("composite_infer",))["composite_infer"]
         frames = [a.elapsed_time(z) for a, z in ev]
         peak = torch.cuda.max_memory_allocated() / 2**30
         for img, dropped in outs:
@@ -3038,7 +3032,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     try:
-        from gsjax_torch.ops import cuda_composite
+        from gsjax_torch.ops import kernels
     except ImportError as e:
         print(f"chip_smoke: the gsjax_torch package is missing ({e})", file=sys.stderr)
         return 2
@@ -3051,7 +3045,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    cuda_composite.load_library(verbose=True)
+    kernels.load_library(verbose=True)
     log(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     device = "cuda"

@@ -1,8 +1,7 @@
 """Two trees of this repository on one card, in turns: the A/B of a
 kernel change.
 
-    python -m gsjax_torch.ab_smoke OTHER_TREE [--logs DIR]
-    python -m gsjax_torch.ab_smoke OTHER_TREE --frames N
+    python -m gsjax_torch.ab_smoke OTHER_TREE [--logs DIR] [--b TREE]
 
 Runs ``python3 chip_smoke.py`` from the root of OTHER_TREE (``A``, the
 tree compared against, e.g. the parent commit unpacked by ``git archive
@@ -19,17 +18,8 @@ each backward and forward kernel instance's registers, shared memory and
 spills (``bwd_instances``, ``fwd_instances``; ``-Xptxas -v``, printed
 when chip_smoke builds a tree's kernels, so in its first run when nothing
 was built before). Last, one JSON line ``{"ab": "done", "failed": [...]}``; the
-exit code is nonzero when a run failed.
-
-With ``--frames N`` it runs ``gsjax_torch/frame_times.py`` of this
-checkout in each tree instead, A, B, B, A twice: N render frames of the
-bench scene each, so that the frame median, which chip_smoke's 40 frames
-leave to the host's noise, is compared on its own. ``--steps N`` does the
-same with ``gsjax_torch/step_times.py``: N float32 train steps, with one
-step closure (``--mode alone``) or two in turns (``--mode turns``, phase
-5's order). One JSON line per run (the tree, exit code and the script's
-line), then the ``done`` line. ``--b TREE`` puts another tree in B's place
-(two older trees against each other).
+exit code is nonzero when a run failed. ``--b TREE`` puts another tree in
+B's place (two older trees against each other).
 
 Needs a card, as chip_smoke.py does; the runs are sequential, so one
 card serves them all. Imports neither torch nor JAX.
@@ -48,8 +38,6 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_TIMEOUT_S = 1200  # chip_smoke's own limit
 ORDER = "ABBA"
-FRAMES_SCRIPT = os.path.join(HERE, "gsjax_torch", "frame_times.py")
-STEPS_SCRIPT = os.path.join(HERE, "gsjax_torch", "step_times.py")
 
 _NUM = r"([0-9.]+)"
 PATTERNS = {
@@ -144,32 +132,11 @@ def run_tree(root: str, log_path: str) -> dict:
     return {"rc": rc, "seconds": time.perf_counter() - t0, **parse_log(text)}
 
 
-def run_frames(root: str, frames: int, script: str = "", *args) -> dict:
-    """``script`` (default :data:`FRAMES_SCRIPT`) with the tree ``root`` as
-    working directory."""
-    res = subprocess.run([sys.executable, "-P", script or FRAMES_SCRIPT, str(frames), *args],
-                         cwd=root,
-                         capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
-    lines = res.stdout.strip().splitlines()
-    rec = {"rc": res.returncode}
-    if res.returncode == 0 and lines:
-        rec.update(json.loads(lines[-1]))
-    else:
-        rec["stderr"] = res.stderr[-2000:]
-    return rec
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the tree compared against (A)")
     ap.add_argument("--logs", default=os.path.join(HERE, "build", "ab", "logs"),
                     help="directory for each run's output")
-    ap.add_argument("--frames", type=int, default=0,
-                    help="time N render frames in each tree instead of chip_smoke.py")
-    ap.add_argument("--steps", type=int, default=0,
-                    help="time N train steps in each tree instead of chip_smoke.py")
-    ap.add_argument("--mode", choices=("alone", "turns"), default="alone",
-                    help="--steps: one step closure, or two in turns")
     ap.add_argument("--b", default=HERE, help="root of the tree in B's place")
     args = ap.parse_args(argv)
     roots = {"A": os.path.abspath(args.other), "B": os.path.abspath(args.b)}
@@ -178,17 +145,10 @@ def main(argv=None) -> int:
             print(f"ab_smoke: no chip_smoke.py in {root}", file=sys.stderr)
             return 2
     failed = []
-    short = args.frames or args.steps
-    for i, tree in enumerate(ORDER * 2 if short else ORDER):
-        if args.frames:
-            rec = {"root": roots[tree], **run_frames(roots[tree], args.frames)}
-        elif args.steps:
-            rec = {"root": roots[tree], **run_frames(roots[tree], args.steps, STEPS_SCRIPT,
-                                                     args.mode)}
-        else:
-            os.makedirs(args.logs, exist_ok=True)
-            log_path = os.path.join(args.logs, f"{i}_{tree}.log")
-            rec = {"root": roots[tree], "log": log_path, **run_tree(roots[tree], log_path)}
+    os.makedirs(args.logs, exist_ok=True)
+    for i, tree in enumerate(ORDER):
+        log_path = os.path.join(args.logs, f"{i}_{tree}.log")
+        rec = {"root": roots[tree], "log": log_path, **run_tree(roots[tree], log_path)}
         print(json.dumps({"run": i, "tree": tree, **rec}), flush=True)
         if rec["rc"] != 0:
             failed.append(i)

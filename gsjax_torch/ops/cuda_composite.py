@@ -12,8 +12,10 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   per-pair gradient table: the (P, 5) int32 table of bf16 pairs that the
   backward writes under ``grad_dtype="bfloat16"``.
 - Three wrappers of hand-written CUDA kernels in ``gsjax_torch/csrc/``,
-  each with a launch counter (``fn.launches``) and a plain PyTorch version
-  with the same inputs, outputs and semantics:
+  each with a plain PyTorch version with the same inputs, outputs and
+  semantics. Each launches through :func:`gsjax_torch.ops.kernels.launch`,
+  which counts it under the wrapper's name in ``utils.profiling``'s
+  ``launches()``:
 
   ========================  ==========================  ==============================
   wrapper                   kernel source               replaces (gsjax Pallas)
@@ -39,13 +41,6 @@ Counterpart of ``gsjax.ops.pallas_composite``. It holds:
   ``composite_bwd`` plus the reduction backward. Inside a dispatch, the
   backward marks ``utils.profiling``'s layer boundaries ``loss`` (at its
   entry), ``composite_bwd`` and ``reduce``.
-- :func:`load_library`, which builds each kernel of ``SOURCES`` (these
-  three, the speed-of-light probe of :mod:`gsjax_torch.ops.cuda_probe`, the
-  primal preprocess of :func:`gsjax_torch.ops.projection.preprocess_infer`
-  and its backward, :func:`gsjax_torch.ops.projection.preprocess_bwd`)
-  with ``nvcc`` for ``sm_90a`` at first use into ``build/gsjax_torch/``
-  (one ``nvcc`` per source, all started together) and loads them with
-  ``ctypes``.
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back.
@@ -60,15 +55,9 @@ in float32, in its own order whatever ``grad_reduce`` says.
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import types
-
 import torch
 
+from gsjax_torch.ops import kernels
 from gsjax_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, _tile_pixel_coords, scan_tiles
 from gsjax_torch.ops.projection import TILE
 from gsjax_torch.utils import profiling
@@ -84,106 +73,6 @@ NWARP = PIX // 32  # warps of a tile's block; warp w holds pixel rows 2w, 2w + 1
 # csrc/composite_bwd.cu: pairs staged per batch, pairs per warp reduce-scatter
 BWD_BATCH = 64
 BWD_GROUP = 8
-
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CSRC_DIR = os.path.join(_REPO_ROOT, "gsjax_torch", "csrc")
-BUILD_DIR = os.path.join(_REPO_ROOT, "build", "gsjax_torch")
-# source -> {exported function: its ctypes argument types}; one shared
-# library per source
-_P, _I = ctypes.c_void_p, ctypes.c_int
-SOURCES = {
-    "composite_infer.cu": {"gsjax_composite_infer": [_P] * 5 + [_I] * 2 + [_P]},
-    "composite_fwd.cu": {"gsjax_composite_fwd": [_P] * 6 + [_I] * 2 + [_P],
-                         "gsjax_composite_fwd_check": [_P] * 6 + [_I] * 2 + [_P]},
-    "composite_bwd.cu": {"gsjax_composite_bwd": [_P] * 8 + [_I] * 3 + [_P],
-                         "gsjax_composite_bwd_counts": [_P] * 9 + [_I] * 4 + [_P]},
-    # the speed-of-light probe (ops/cuda_probe.py)
-    "sol_probe.cu": {"gsjax_sol_probe":
-                     [_P] * 3 + [_I] * 5 + [ctypes.POINTER(ctypes.c_float), _P],
-                     "gsjax_sol_probe_info": [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]},
-    # the primal preprocess (ops/projection.py:preprocess_infer)
-    "preprocess_infer.cu": {"gsjax_preprocess_infer":
-                            [_P] * 23 + [_I] * 5 + [ctypes.c_float, _I, _P]},
-    # its backward (ops/projection.py:preprocess_bwd)
-    "preprocess_bwd.cu": {"gsjax_preprocess_bwd":
-                          [_P] * 14 + [_I] * 4 + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]},
-}
-HEADERS = ("composite_blend.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-# flags of one source only: the preprocess contracts no multiply-add that the
-# plain version rounds twice (see its header)
-SOURCE_FLAGS = {"preprocess_infer.cu": ("-fmad=false",)}
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def _lib_path(source: str) -> str:
-    return os.path.join(BUILD_DIR, f"libgsjax_torch_{source[:-3]}.so")
-
-
-def build_library(verbose: bool = False) -> dict:
-    """Compile each ``csrc/*.cu`` into ``build/gsjax_torch/libgsjax_torch_<name>.so``
-    unless an up-to-date library is there; the ``nvcc`` processes run side
-    by side. Returns ``{source: library path}``."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    newest_header = max(os.path.getmtime(os.path.join(CSRC_DIR, h)) for h in HEADERS)
-    jobs = {}
-    for src in SOURCES:
-        out = _lib_path(src)
-        path = os.path.join(CSRC_DIR, src)
-        if os.path.exists(out) and os.path.getmtime(out) >= max(
-                os.path.getmtime(path), newest_header):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()),
-               *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, path]
-        jobs[src] = (cmd, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for src, (cmd, tmp, out, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-            continue
-        if verbose:
-            print(f"{src}:\n{log}", flush=True)
-        os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return {src: _lib_path(src) for src in SOURCES}
-
-
-def load_library(verbose: bool = False) -> types.SimpleNamespace:
-    """Build (at first use) and load the kernels; returns a namespace of
-    their ctypes functions, by exported name."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            fns = {}
-            for src, path in build_library(verbose).items():
-                lib = ctypes.CDLL(path)
-                for name, argtypes in SOURCES[src].items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                    fns[name] = fn
-            _lib = types.SimpleNamespace(**fns)
-        return _lib
-
 
 def pack_f16_pair(hi, lo):
     """Two float32 (N,) tensors -> one float32 tensor whose bits hold
@@ -318,32 +207,17 @@ def _plain_scan(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, boxes=Non
     )
 
 
-def _cuda_device(name, dev):
-    if dev.type != "cuda":
-        raise RuntimeError(f"{name} runs on CUDA or CPU tensors, not {dev}")
-
-
-def _launch(name, fn, *args):
-    """Call a kernel's C entry on the current stream; raise on a launch error."""
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
 def _launch_blend(name, tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y, with_ncon):
     """Launch the forward blend's C entry ``gsjax_<name>`` on CUDA inputs:
     returns ``(tile_colors, tile_T)``, with ``n_contrib`` if ``with_ncon``."""
     dev = gauss_attrs.device
-    _cuda_device(name, dev)
     num_tiles = tiles_x * tiles_y
     ins = [x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs)]
     outs = [torch.empty((num_tiles, PIX, 3), dtype=torch.float32, device=dev),
             torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)]
     if with_ncon:
         outs.append(torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev))
-    with torch.cuda.device(dev):
-        _launch(name, getattr(load_library(), f"gsjax_{name}"),
-                *(x.data_ptr() for x in ins + outs), num_tiles, tiles_x)
+    kernels.launch(name, *ins, *outs, num_tiles, tiles_x)
     return tuple(outs)
 
 
@@ -374,19 +248,13 @@ def composite_infer(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: 
     ``tile_start`` (T + 1,) int32 ranges into ``pair_gauss`` (P,) int32,
     which indexes rows of ``gauss_attrs`` (N, 8) float32
     (:func:`pack_gauss_attrs`). Returns ``(tile_colors (T, 256, 3),
-    tile_T (T, 256))``. CUDA tensors launch the kernel (and count the
-    launch in ``composite_infer.launches``); CPU tensors take
+    tile_T (T, 256))``. CUDA tensors launch the kernel; CPU tensors take
     :func:`composite_infer_plain`; anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     if gauss_attrs.device.type == "cpu":
         return composite_infer_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    out = _launch_blend("composite_infer", tile_start, pair_gauss, gauss_attrs, tiles_x,
-                        tiles_y, False)
-    composite_infer.launches += 1
-    return out
-
-
-composite_infer.launches = 0
+    return _launch_blend("composite_infer", tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y,
+                         False)
 
 
 # --------------------------------------------------------------------------
@@ -472,18 +340,13 @@ def composite_fwd(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: in
     """:func:`composite_infer` plus ``n_contrib`` (T, 256) int32, the local
     index + 1 of the last pair each pixel blended (0 if none) — what the
     backward replays. Returns ``(tile_colors, tile_T, n_contrib)``. CUDA
-    tensors launch the kernel (counted in ``composite_fwd.launches``); CPU
-    tensors take :func:`composite_fwd_plain`; anything else raises."""
+    tensors launch the kernel; CPU tensors take :func:`composite_fwd_plain`;
+    anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     if gauss_attrs.device.type == "cpu":
         return composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    out = _launch_blend("composite_fwd", tile_start, pair_gauss, gauss_attrs, tiles_x,
-                        tiles_y, True)
-    composite_fwd.launches += 1
-    return out
-
-
-composite_fwd.launches = 0
+    return _launch_blend("composite_fwd", tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y,
+                         True)
 
 
 def composite_fwd_check(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles_y: int):
@@ -491,20 +354,14 @@ def composite_fwd_check(tile_start, pair_gauss, gauss_attrs, tiles_x: int, tiles
     path: :func:`composite_fwd`'s walk of every pair, without the per-warp
     cull. Returns ``(tile_colors, tile_T, n_contrib)``; :func:`composite_fwd`
     and :func:`composite_infer` must equal it bit for bit — the exact check
-    that the cull lost no blend. CUDA tensors launch the kernel (counted in
-    ``composite_fwd_check.launches``, not in ``composite_fwd.launches`` or
-    ``composite_infer.launches``); CPU tensors take
-    :func:`composite_fwd_plain`."""
+    that the cull lost no blend. CUDA tensors launch the kernel (counted as
+    ``composite_fwd_check``, apart from ``composite_fwd`` and
+    ``composite_infer``); CPU tensors take :func:`composite_fwd_plain`."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     if gauss_attrs.device.type == "cpu":
         return composite_fwd_plain(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
-    out = _launch_blend("composite_fwd_check", tile_start, pair_gauss, gauss_attrs, tiles_x,
-                        tiles_y, True)
-    composite_fwd_check.launches += 1
-    return out
-
-
-composite_fwd_check.launches = 0
+    return _launch_blend("composite_fwd_check", tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y,
+                         True)
 
 
 # --------------------------------------------------------------------------
@@ -713,10 +570,9 @@ def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, 
     packs them (:func:`pack_bf16_pairs`) into a (P, 5) int32 table, half
     up under ``grad_reduce="sort"`` and to nearest even under
     ``"gather"``, as gsjax's ``composite_pallas_grads`` does. Other values
-    raise. CUDA tensors launch the kernel (counted in
-    ``composite_bwd.launches``, its bf16 instances also in
-    ``composite_bwd.launches_bf16``); CPU tensors take
-    :func:`composite_bwd_plain`; anything else raises."""
+    raise. CUDA tensors launch the kernel (its bf16 instances counted also
+    as ``composite_bwd_bf16``); CPU tensors take :func:`composite_bwd_plain`;
+    anything else raises."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     mode = _grad_mode(grad_dtype, grad_reduce)
     dev = gauss_attrs.device
@@ -724,22 +580,15 @@ def composite_bwd(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T, 
         return composite_bwd_plain(tile_start, pair_gauss, gauss_attrs, d_tile_colors,
                                    d_tile_T, final_T, n_contrib, tiles_x, tiles_y,
                                    grad_dtype=grad_dtype, grad_reduce=grad_reduce)
-    _cuda_device("composite_bwd", dev)
     num_tiles = tiles_x * tiles_y
     _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
     ins = [x.contiguous() for x in (tile_start, pair_gauss, gauss_attrs, d_tile_colors,
                                     d_tile_T, final_T, n_contrib)]
     pair_grads = _bwd_table(pair_gauss.shape[0], mode, dev)
-    with torch.cuda.device(dev):
-        _launch("composite_bwd", load_library().gsjax_composite_bwd,
-                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), num_tiles, tiles_x, mode)
-    composite_bwd.launches += 1
-    composite_bwd.launches_bf16 += mode != 0
+    kernels.launch("composite_bwd", *ins, pair_grads, num_tiles, tiles_x, mode)
+    if mode:
+        profiling.launched("composite_bwd_bf16")
     return pair_grads
-
-
-composite_bwd.launches = 0
-composite_bwd.launches_bf16 = 0
 
 
 def composite_bwd_counts(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_tile_T,
@@ -751,9 +600,8 @@ def composite_bwd_counts(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_t
     pairs — the exact check that no contribution was lost. Returns
     :func:`composite_bwd`'s table for ``grad_dtype`` and ``grad_reduce``
     and the (T, 256) int32 counts. CUDA tensors launch the kernel (counted
-    in ``composite_bwd_counts.launches``, not in ``composite_bwd.launches``);
-    CPU tensors take :func:`composite_bwd_plain` (its ``n_live`` as the
-    counts)."""
+    as ``composite_bwd_counts``, apart from ``composite_bwd``); CPU tensors
+    take :func:`composite_bwd_plain` (its ``n_live`` as the counts)."""
     _check_inputs(tile_start, pair_gauss, gauss_attrs, tiles_x, tiles_y)
     mode = _grad_mode(grad_dtype, grad_reduce)
     dev = gauss_attrs.device
@@ -763,21 +611,14 @@ def composite_bwd_counts(tile_start, pair_gauss, gauss_attrs, d_tile_colors, d_t
         out, n_live, _ = composite_bwd_plain(*args, return_evals=True, grad_dtype=grad_dtype,
                                              grad_reduce=grad_reduce)
         return out, n_live.to(torch.int32)
-    _cuda_device("composite_bwd_counts", dev)
     num_tiles = tiles_x * tiles_y
     _check_pixel_inputs(num_tiles, dev, d_tile_colors, d_tile_T, final_T, n_contrib)
     ins = [x.contiguous() for x in args[:7]]
     pair_grads = _bwd_table(pair_gauss.shape[0], mode, dev)
     counts = torch.empty((num_tiles, PIX), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch("composite_bwd_counts", load_library().gsjax_composite_bwd_counts,
-                *(x.data_ptr() for x in ins), pair_grads.data_ptr(), counts.data_ptr(),
-                num_tiles, tiles_x, int(bool(cull)), mode)
-    composite_bwd_counts.launches += 1
+    kernels.launch("composite_bwd_counts", *ins, pair_grads, counts, num_tiles, tiles_x,
+                   int(bool(cull)), mode)
     return pair_grads, counts
-
-
-composite_bwd_counts.launches = 0
 
 
 # --------------------------------------------------------------------------

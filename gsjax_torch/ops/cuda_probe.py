@@ -24,8 +24,9 @@ by far more than the tolerance. Both run the same kernel template: the
 probes' coefficients as an immediate and constant memory, any others read
 from the kernel's parameter, in an instance of their own.
 
-- :func:`sol_probe` launches the kernel (counted in ``sol_probe.launches``)
-  for CUDA tensors and takes :func:`sol_probe_plain` for CPU tensors.
+- :func:`sol_probe` launches the kernel (through
+  :func:`gsjax_torch.ops.kernels.launch`, counted as ``sol_probe``) for CUDA
+  tensors and takes :func:`sol_probe_plain` for CPU tensors.
   It takes only the swept pairs :data:`SWEPT` at :data:`OCCUPANCIES`, each
   a compiled instance; :func:`sol_probe_info` reads an instance's
   registers, spills and resident warps on the card.
@@ -43,7 +44,8 @@ import ctypes
 import numpy as np
 import torch
 
-from gsjax_torch.ops.cuda_composite import ATTR_W, PIX, _cuda_device, _launch, load_library
+from gsjax_torch.ops import kernels
+from gsjax_torch.ops.cuda_composite import ATTR_W, PIX
 
 LANES = 128  # pairs per chunk
 MAX_EXP = 10  # exp offsets the kernel takes (csrc/sol_probe.cu)
@@ -181,27 +183,19 @@ def sol_probe(tile_start, table, k_ops: int, k_exp: int, exp_coefs=PROBE_EXP,
     ``(T, 256)`` float32, which does not depend on the occupancy. Only the
     pairs of :data:`SWEPT` at :data:`OCCUPANCIES` have a compiled instance;
     any other raises, on every device. CUDA tensors launch the kernel on
-    the current stream (counted in ``sol_probe.launches``) or raise; CPU
-    tensors take :func:`sol_probe_plain`."""
+    the current stream or raise; CPU tensors take :func:`sol_probe_plain`."""
     _check_instance(k_ops, k_exp, warps_per_sm)
     _check(tile_start, table)
     _check_coefs(k_exp, exp_coefs)
     dev = table.device
     if dev.type == "cpu":
         return sol_probe_plain(tile_start, table, k_ops, k_exp, exp_coefs)
-    _cuda_device("sol_probe", dev)
     num_tiles = tile_start.numel() - 1
     out = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
     coefs = (ctypes.c_float * (1 + MAX_EXP))(exp_coefs[0], *exp_coefs[1])
-    with torch.cuda.device(dev):
-        _launch("sol_probe", load_library().gsjax_sol_probe, tile_start.data_ptr(),
-                table.data_ptr(), out.data_ptr(), num_tiles, table.shape[0], k_ops, k_exp,
-                warps_per_sm, coefs)
-    sol_probe.launches += 1
+    kernels.launch("sol_probe", tile_start, table, out, num_tiles, table.shape[0], k_ops, k_exp,
+                   warps_per_sm, coefs)
     return out
-
-
-sol_probe.launches = 0
 
 
 def sol_probe_info(k_ops: int, k_exp: int, warps_per_sm: int = 8, check: bool = False):
@@ -216,7 +210,7 @@ def sol_probe_info(k_ops: int, k_exp: int, warps_per_sm: int = 8, check: bool = 
     if not torch.cuda.is_available():
         raise RuntimeError("sol_probe_info reads the card; CUDA is not available")
     v = (ctypes.c_int * 5)()
-    err = load_library().gsjax_sol_probe_info(k_ops, k_exp, warps_per_sm, int(check), v)
+    err = kernels.load_library().gsjax_sol_probe_info(k_ops, k_exp, warps_per_sm, int(check), v)
     if err != 0:
         raise RuntimeError(f"sol_probe_info: CUDA error {err}")
     info = dict(zip(("registers", "local_bytes", "blocks_per_sm", "threads", "smem_bytes"), v))

@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gsjax_torch.data.cameras import CAMERA_TENSORS, RenderCamera
-from gsjax_torch.utils import profiling
+from gsjax_torch.ops import kernels
 from gsjax_torch.utils.math import covariance6, safe_normalize
 from gsjax_torch.utils.sh import band_mask, eval_sh, sh_basis, sh_basis_vjp
 
@@ -339,12 +339,10 @@ def preprocess_infer(
     Slots with ``radii == 0`` (``tiles_touched`` is 0 there too) feed no
     pair, and their ``colors`` are 0 unless ``colors_precomp`` is given.
 
-    Each call counts in ``preprocess_infer.launches`` and in the registry's
-    counter ``preprocess.kernel`` (``utils.profiling``). ``launches`` is
-    the kernels that ran: ``utils.graphs`` adds a graph's launches at each
-    replay and takes back its capture's. The registry's counter counts
-    calls on the host: a graphed frame counts at its capture (once for its
-    eager warm-up, once for the capture itself) and never at a replay."""
+    It launches through :func:`gsjax_torch.ops.kernels.launch`, which
+    counts the kernels that ran as ``preprocess_infer``: a graphed frame's
+    launch counts at its eager warm-up and at every replay, not at the
+    capture."""
     dev = means3d.device
     if dev.type != "cuda":
         raise RuntimeError(f"preprocess_infer runs on CUDA tensors, not {dev}")
@@ -375,20 +373,10 @@ def preprocess_infer(
                  colors=empty(n, 3), opacities=empty(n), radii=empty(n, dtype=i32),
                  rect_min=empty(n, 2, dtype=i32), rect_max=empty(n, 2, dtype=i32),
                  tiles_touched=empty(n, dtype=i32))
-    from gsjax_torch.ops.cuda_composite import _launch, load_library  # it imports TILE from here
-
     k_used = min(k, (min(max(int(sh_degree), 0), 3) + 1) ** 2)
-    with torch.cuda.device(dev):
-        _launch("preprocess_infer", load_library().gsjax_preprocess_infer,
-                *(0 if x is None else x.data_ptr() for x in ins),
-                *(x.data_ptr() for x in out), n, k, k_used, camera.width, camera.height,
-                float(scale_modifier), int(bool(opacity_aware_radius)))
-    preprocess_infer.launches += 1
-    profiling.count("preprocess.kernel")
+    kernels.launch("preprocess_infer", *ins, *out, n, k, k_used, camera.width, camera.height,
+                   float(scale_modifier), int(bool(opacity_aware_radius)))
     return out
-
-
-preprocess_infer.launches = 0
 
 
 class _PreprocessTrain(torch.autograd.Function):
@@ -462,10 +450,9 @@ def preprocess_bwd(means3d, scales, quats, opacities, shs, camera: RenderCamera,
     None unless ``with_offset``; the offset's is means2d's. It equals
     :func:`preprocess_vjp_plain` up to the order of its float32 sums.
 
-    Each call counts in ``preprocess_bwd.launches`` and in the registry's
-    counter ``preprocess.bwd_kernel``, as :func:`preprocess_infer`'s do:
-    ``launches`` is the kernels that ran (``utils.graphs`` adds a graph's
-    launches at each replay), the counter the calls on the host."""
+    It launches through :func:`gsjax_torch.ops.kernels.launch`, which
+    counts the kernels that ran as ``preprocess_bwd``, as
+    :func:`preprocess_infer`'s."""
     dev = means3d.device
     if dev.type != "cuda":
         raise RuntimeError(f"preprocess_bwd runs on CUDA tensors, not {dev}")
@@ -496,23 +483,11 @@ def preprocess_bwd(means3d, scales, quats, opacities, shs, camera: RenderCamera,
             for shape in ((3,), (3,), (4,), (), (k, 3), (2,))]
     if not with_offset:
         outs[5] = None
-    from gsjax_torch.ops.cuda_composite import _launch, load_library  # it imports TILE from here
-
     k_used = min(k, (min(max(int(sh_degree), 0), 3) + 1) ** 2)
-    with torch.cuda.device(dev):
-        _launch("preprocess_bwd", load_library().gsjax_preprocess_bwd,
-                *(x.data_ptr() for x in ins),
-                *(0 if g is None else g.data_ptr() for g, _ in g_in),
-                *(s for _, s in g_in),
-                *(0 if x is None else x.data_ptr() for x in outs),
-                n, k, k_used, camera.width, camera.height, float(scale_modifier))
-    preprocess_bwd.launches += 1
-    profiling.count("preprocess.bwd_kernel")
+    kernels.launch("preprocess_bwd", *ins, *(g for g, _ in g_in), *(s for _, s in g_in), *outs,
+                   n, k, k_used, camera.width, camera.height, float(scale_modifier))
     outs[3] = outs[3].reshape(opacities.shape)
     return tuple(outs)
-
-
-preprocess_bwd.launches = 0
 
 
 def _f16_rounded(g, dtype):

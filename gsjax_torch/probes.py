@@ -358,10 +358,10 @@ def run(stages, out: bool, device) -> int:
     import torch
 
     from gsjax_torch.bench_scene import toy_scene
-    from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.ops import cuda_probe as cp
     from gsjax_torch.utils.profiling import (
-        card, ceilings_path, measure_rtt, sol_probe_work, state_frame_inputs,
+        card, ceilings_path, launches, launches_since, measure_rtt, sol_probe_work,
+        state_frame_inputs,
     )
     from gsjax_torch.utils.profiling import timed as _timed
 
@@ -375,10 +375,7 @@ def run(stages, out: bool, device) -> int:
          "card": smi})
     state, cam = toy_scene(*SCENE, WIDTH, HEIGHT, log_scale=-5.2, device=device)
     scene = (state, cam.to_render_camera(device), torch.zeros(3, device=device))
-    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_fwd_check, cc.composite_bwd,
-               cc.composite_bwd_counts, cp.sol_probe)
-    for k in kernels:
-        k.launches = 0
+    launched = launches()
 
     ceilings = {"card": smi, "source": "python -m gsjax_torch.probes"}
     if "gather" in stages:
@@ -435,14 +432,16 @@ def run(stages, out: bool, device) -> int:
                      "ms_per_exp_pass_from_e5": (ms["f20e5"] - ms["f20e0"]) / 5,
                      "exp_pass_per_s": probe["exp_pass_per_s"]})
 
-    launches = {k.__name__: k.launches for k in kernels}
+    counts = launches_since(launched, ("composite_infer", "composite_fwd",
+                                       "composite_fwd_check", "composite_bwd",
+                                       "composite_bwd_counts", "sol_probe"))
     if out:
         path = ceilings_path()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "w") as f:
             json.dump(_round(ceilings), f, indent=1)
         log({"stage": "out", "path": path})
-    log({"stage": "done", "launches": launches})
+    log({"stage": "done", "launches": counts})
     return 0
 
 

@@ -22,11 +22,12 @@ evaluates and saves; the others run quiet. A sharded run serves no viewer
 the bridge is off.
 
 On its last line the CLI prints one JSON object with the iterations run,
-the compositing kernels' launch counts over the run (this rank's; with
-``bwd_launches_bf16``, those of the backward's bf16 instances, which the
-default settings' ``grad_dtype="bfloat16"`` selects on CUDA), the steps
-each path ran (``step_paths``: replayed CUDA graphs, graph warm-ups, eager;
-see ``train.loop``), the CUDA graphs captured and the host seconds their
+the compositing kernels' launch counts over the run (this rank's, from
+``launches()`` of ``utils.profiling``; with ``bwd_launches_bf16``, those
+of the backward's bf16 instances, which the default settings'
+``grad_dtype="bfloat16"`` selects on CUDA), the steps each path ran
+(``step_paths``: replayed CUDA graphs, graph warm-ups, eager; see
+``train.loop``), the CUDA graphs captured and the host seconds their
 captures took (``graph_captures``: steps, dispatches and renders), its
 wall time and, on CUDA, the peak device memory.
 """
@@ -104,10 +105,10 @@ def main(argv=None):
     import torch
 
     from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams, extract
-    from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.parallel.multihost import is_main_process, maybe_initialize, rank_device
     from gsjax_torch.train.loop import training
     from gsjax_torch.utils import profiling
+    from gsjax_torch.utils.profiling import launches, launches_since
     from gsjax_torch.utils.system import safe_state
 
     device = rank_device(args.device)  # fail before loading anything
@@ -187,11 +188,8 @@ def main(argv=None):
         for fn in passives:
             fn(iteration, state, render_fn)
 
-    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd)
-    for k in kernels:
-        k.launches = 0
-    cc.composite_bwd.launches_bf16 = 0
     profiling.REGISTRY.reset()
+    launched = launches()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -223,9 +221,11 @@ def main(argv=None):
     summary = {
         "stage": "done", "rank": torch.distributed.get_rank() if distributed else 0, "iterations": opt.iterations, "wall_s": wall,
         "num_active": int(state.num_active), "capacity": state.capacity,
-        "launches": {k.__name__: k.launches for k in kernels},
+        "launches": launches_since(launched, ("composite_infer", "composite_fwd",
+                                              "composite_bwd")),
         # of composite_bwd's launches, those of its bf16 instances (grad_dtype)
-        "bwd_launches_bf16": cc.composite_bwd.launches_bf16,
+        "bwd_launches_bf16": launches_since(launched, ("composite_bwd_bf16",))[
+            "composite_bwd_bf16"],
         # steps by path (graph: replays; capture: a new graph's warm-up;
         # eager: op by op) and the captures, under a profiler or not
         "step_paths": {p: sum(r["counters"].get(f"train.{p}", 0) for r in both)

@@ -61,7 +61,7 @@ from gsjax_torch.configs import ModelParams, OptimizationParams, PipelineParams,
 from gsjax_torch.data.cameras import stack_render_cameras
 from gsjax_torch.eval.metrics import psnr
 from gsjax_torch.models.gaussians import activated, create_empty, grow_capacity
-from gsjax_torch.ops.cuda_composite import load_library
+from gsjax_torch.ops.kernels import load_library
 from gsjax_torch.ops.projection import num_tiles, preprocess
 from gsjax_torch.ops.rasterize import RasterizeSettings
 from gsjax_torch.train.checkpoint import (

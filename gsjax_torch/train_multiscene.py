@@ -96,7 +96,6 @@ def main(argv=None):
     from gsjax_torch.configs import ModelParams, OptimizationParams
     from gsjax_torch.data.cameras import stack_render_cameras
     from gsjax_torch.models.gaussians import grow_capacity
-    from gsjax_torch.ops import cuda_composite as cc
     from gsjax_torch.parallel.multi_scene import (
         local_scene_ids,
         local_scene_state,
@@ -115,6 +114,7 @@ def main(argv=None):
     from gsjax_torch.train.optim import make_optimizer
     from gsjax_torch.train.scene import Scene
     from gsjax_torch.train.step import TrainConfig, stack_images
+    from gsjax_torch.utils.profiling import launches, launches_since
 
     rank_device(args.device)  # fail before loading anything
     maybe_initialize(args.dist_coordinator, args.dist_num_processes, args.dist_process_id,
@@ -207,9 +207,7 @@ def main(argv=None):
         | set(range(opt.opacity_reset_interval, args.iterations, opt.opacity_reset_interval))
     ) if e <= args.iterations)
 
-    kernels = (cc.composite_infer, cc.composite_fwd, cc.composite_bwd)
-    for k in kernels:
-        k.launches = 0
+    launched = launches()
     t0 = time.time()
     it = 0
     losses = None
@@ -243,7 +241,8 @@ def main(argv=None):
     print(json.dumps({"stage": "done", "scene": sid, "iterations": args.iterations,
                       "losses": [float(v) for v in losses], "wall_s": wall,
                       "num_active": int(state.num_active),
-                      "launches": {k.__name__: k.launches for k in kernels}}), flush=True)
+                      "launches": launches_since(launched, (
+                          "composite_infer", "composite_fwd", "composite_bwd"))}), flush=True)
     return 0
 
 

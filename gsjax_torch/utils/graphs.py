@@ -16,11 +16,11 @@ static buffers, keep the state's tensors in place, and key their graphs on
 those tensors' addresses as well as on what gsjax's ``jit`` keys its
 programs on. A capture that fails raises; nothing falls back to eager.
 
-The kernels' launch counters (``fn.launches`` of ``ops.cuda_composite``,
-``ops.projection.preprocess_infer`` and ``preprocess_bwd``) are Python and run while a graph
-is captured, when nothing is launched. :class:`Graph` takes back what a
-capture added and adds it again at every replay, so the counts stay the
-number of kernels that ran.
+The registry of ``utils.profiling`` counts the kernel launches. A launch
+made while a graph is captured launches nothing: the registry records it
+into the capture (``Registry.capturing``), and :class:`Graph` hands those
+counts back at every replay (``Registry.replayed``), so the counts stay
+the number of kernels that ran.
 
 Spans of ``utils.profiling``'s registry time a graph's host work:
 ``graph.warm_up`` and ``graph.capture`` (their counts are the captures),
@@ -40,32 +40,11 @@ import time
 
 import torch
 
-from gsjax_torch.ops import cuda_composite, projection
 from gsjax_torch.utils import profiling
 
-# (wrapper, attribute) of every launch counter a captured function can move
-_COUNTERS = (
-    (cuda_composite.composite_infer, "launches"),
-    (cuda_composite.composite_fwd, "launches"),
-    (cuda_composite.composite_fwd_check, "launches"),
-    (cuda_composite.composite_bwd, "launches"),
-    (cuda_composite.composite_bwd, "launches_bf16"),
-    (cuda_composite.composite_bwd_counts, "launches"),
-    (projection.preprocess_infer, "launches"),
-    (projection.preprocess_bwd, "launches"),
-)
 GRAPHS_KEPT = 2  # captured graphs a cache keeps (each holds its own memory pool)
 
 _streams: dict = {}
-
-
-def launch_counts() -> tuple:
-    return tuple(getattr(fn, attr) for fn, attr in _COUNTERS)
-
-
-def _add_launch_counts(delta):
-    for (fn, attr), d in zip(_COUNTERS, delta):
-        setattr(fn, attr, getattr(fn, attr) + d)
 
 
 def capture_stream(device: torch.device) -> torch.cuda.Stream:
@@ -105,14 +84,15 @@ class Graph:
     and then captures it, later calls replay it. Each call returns a copy
     of the outputs. ``capture_s`` is the host seconds of the capture (with
     its instantiation), ``marks`` the layer clock's stamps it recorded
-    (``mark_events``: their events, which the graph's nodes need alive)."""
+    (``mark_events``: their events, which the graph's nodes need alive) and
+    ``kernels`` the kernel launches it recorded, ``{kernel: count}``."""
 
     def __init__(self, fn, device: torch.device):
         self.fn = fn
         self.device = device
         self.graph = None
         self.out = None
-        self.delta = None
+        self.kernels = {}
         self.capture_s = None
         self.marks, self.mark_events = [], []
         self.launched = False
@@ -125,7 +105,7 @@ class Graph:
             self.graph.replay()
         self.launched = True
         with profiling.span("graph.outputs"):
-            _add_launch_counts(self.delta)
+            profiling.REGISTRY.replayed(self.kernels)
             return clone_outputs(self.out)
 
     def _warm_up_and_capture(self):
@@ -146,20 +126,16 @@ class Graph:
         gc.disable()
         try:
             with profiling.span("graph.capture"), \
-                    profiling.REGISTRY.capturing() as (marks, self.mark_events):
+                    profiling.REGISTRY.capturing() as (marks, self.mark_events, launches):
                 t0 = time.perf_counter()
-                before = launch_counts()
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, stream=s):
                     self.out = self.fn()
-                after = launch_counts()
                 self.capture_s = time.perf_counter() - t0
         finally:
             if collecting:
                 gc.enable()
-        self.marks = marks
-        self.delta = tuple(a - b for a, b in zip(after, before))
-        _add_launch_counts(tuple(-d for d in self.delta))  # the capture launched nothing
+        self.marks, self.kernels = marks, launches
         self.graph = graph
         return out
 

@@ -30,12 +30,13 @@ Everything that times raises on a device that is not CUDA: a CPU time is
 no measurement of the card.
 
 The port measures itself through :data:`REGISTRY` (:class:`Registry`):
-spans of the host's work in each dispatch and frame, counters, and a
-layer clock whose marks, recorded by the code that does each layer's work,
-become event-record nodes of the captured graphs; :func:`records` writes
-it all out as a plain dict (the train CLI's summary and the benchmark's
-``graph_*`` and ``host_*_ms`` metrics read it). On the CPU and the eager
-path the marks take the host's clock, which only checks the segmentation.
+spans of the host's work in each dispatch and frame, counters, the kernel
+launches (:func:`launches`), and a layer clock whose marks, recorded by
+the code that does each layer's work, become event-record nodes of the
+captured graphs; :func:`records` writes it all out as a plain dict (the
+train CLI's summary and the benchmark's ``graph_*`` and ``host_*_ms``
+metrics read it). On the CPU and the eager path the marks take the host's
+clock, which only checks the segmentation.
 """
 
 from __future__ import annotations
@@ -88,7 +89,7 @@ def ceilings_path() -> str:
     """``build/gsjax_torch/ceilings.json``: the ceilings that ``python -m
     gsjax_torch.probes --out`` measured on this machine, which ``python -m
     gsjax_torch.bench`` reports as ``roofline_ref``."""
-    from gsjax_torch.ops.cuda_composite import BUILD_DIR
+    from gsjax_torch.ops.kernels import BUILD_DIR
 
     return os.path.join(BUILD_DIR, "ceilings.json")
 
@@ -720,6 +721,13 @@ class Registry:
     ``record_function("gsjax_torch.<name>")``, so that it sits on the
     trace's timeline.
 
+    The kernel launches: ``ops/kernels.py:launch`` counts each launch
+    (:meth:`launched`) in ``launch_counts``, one total over traced and
+    untraced calls. A launch made while a CUDA graph is captured
+    (:meth:`capturing`) is recorded into that capture instead, and counts
+    once at each replay (:meth:`replayed`), whether or not a dispatch or
+    frame is open.
+
     The layer clock: while a dispatch or frame is open (:meth:`call`;
     process-wide, not per thread, since autograd runs the backward on a
     thread of its own), :meth:`mark` stamps a layer boundary. Captured into
@@ -746,6 +754,8 @@ class Registry:
         self.spans = ({}, {})  # [traced]: name -> [count, ns]
         self.counters = ({}, {})  # [traced]: name -> count
         self.layers = ({}, {})  # [traced]: (kind, path) -> _Layers
+        self.launch_counts = {}  # kernel -> launches that ran
+        self.captured = None  # the launches of the graph being captured
         self.ring.clear()
         self.serial = 0
         self.clock = None  # the open call
@@ -767,6 +777,18 @@ class Registry:
     def count(self, name: str, n: int = 1):
         c = self.counters[profiler_on()]
         c[name] = c.get(name, 0) + n
+
+    def launched(self, name: str):
+        """Kernel ``name`` was launched: it counts now, or at each replay of
+        the graph being captured."""
+        c = self.launch_counts if self.captured is None else self.captured
+        c[name] = c.get(name, 0) + 1
+
+    def replayed(self, launches: dict):
+        """A graph whose capture recorded ``launches`` ({kernel: count}) ran."""
+        c = self.launch_counts
+        for name, n in launches.items():
+            c[name] = c.get(name, 0) + n
 
     # ---- the layer clock ---------------------------------------------------
 
@@ -798,16 +820,20 @@ class Registry:
 
     @contextlib.contextmanager
     def capturing(self):
-        """Around a CUDA graph's capture: yields ``(marks, events)``, the
-        lists that take the marks recorded into the graph, ``(segment, raw
-        event)``, and their ``torch.cuda.Event``s, which the graph has to
-        keep: an event-record node needs its event alive."""
-        marks, events, c = [], [], self.clock
+        """Around a CUDA graph's capture: yields ``(marks, events,
+        launches)``, the lists that take the marks recorded into the graph,
+        ``(segment, raw event)``, and their ``torch.cuda.Event``s, which the
+        graph has to keep (an event-record node needs its event alive), and
+        the dict that takes the kernel launches recorded into it, for
+        :meth:`replayed`."""
+        marks, events, launches, c = [], [], {}, self.clock
         if c is not None:
             c.capture = (marks, events)
+        self.captured = launches
         try:
-            yield marks, events
+            yield marks, events, launches
         finally:
+            self.captured = None
             if c is not None:
                 c.capture = None
 
@@ -908,8 +934,9 @@ class Registry:
         ``spans`` ({name: {"count", "seconds"}}), ``counters`` and
         ``layers`` ({kind: {path: totals}}, each with ``ms``, the mean ms
         of each segment an item, and ``idle``, the share of the host
-        intervals in % that no segment covers); and ``ring``, the newest
-        spans."""
+        intervals in % that no segment covers); ``launches``, the kernel
+        launches that ran (traced and untraced together); and ``ring``, the
+        newest spans."""
         self.read_pending()
         out = {}
         for traced, key in ((False, "untraced"), (True, "traced")):
@@ -922,6 +949,7 @@ class Registry:
                 "counters": dict(sorted(self.counters[traced].items())),
                 "layers": layers,
             }
+        out["launches"] = dict(sorted(self.launch_counts.items()))
         out["ring"] = [{"serial": s, "name": n, "parent": p, "start_s": t0 * 1e-9,
                         "seconds": dt * 1e-9, "traced": tr}
                        for s, n, p, t0, dt, tr in self.ring]
@@ -938,6 +966,26 @@ def span(name: str):
 
 def count(name: str, n: int = 1):
     REGISTRY.count(name, n)
+
+
+def launched(name: str):
+    """Count one launch of kernel ``name`` (``ops/kernels.py:launch``)."""
+    REGISTRY.launched(name)
+
+
+def launches() -> dict:
+    """``{kernel: launches}`` of the kernels that ran since the registry's
+    reset, traced and untraced calls together; a launch captured into a
+    CUDA graph counts at each replay. A reader takes it before its work
+    and :func:`launches_since` after it."""
+    return dict(REGISTRY.launch_counts)
+
+
+def launches_since(before: dict, names) -> dict:
+    """``{name: launches}`` of the kernels ``names`` since ``before`` (an
+    earlier :func:`launches`)."""
+    now = REGISTRY.launch_counts
+    return {n: now.get(n, 0) - before.get(n, 0) for n in names}
 
 
 def call(name: str, kind: str, items: int):

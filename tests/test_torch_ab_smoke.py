@@ -99,50 +99,21 @@ def test_runs_two_trees_in_turns(tmp_path, capsys, monkeypatch, rc):
     assert lines[4] == {"ab": "done", "failed": [0, 3] if rc else []}
 
 
-def test_frames_mode_runs_the_frame_script_in_turns(tmp_path, capsys, monkeypatch):
-    """``--frames N``: this checkout's frame script in each tree (its
-    working directory), A, B, B, A twice, one line per run."""
+def test_b_puts_another_tree_in_bs_place(tmp_path, capsys, monkeypatch):
+    """``--b TREE``: two older trees against each other, A, B, B, A, and
+    this checkout runs in neither."""
     _stand_in(tmp_path / "a", 3.338, 0)
     _stand_in(tmp_path / "b", 2.288, 0)
-    script = tmp_path / "frames.py"
-    script.write_text("import json, os, sys\n"
-                      "print(json.dumps({'frames': int(sys.argv[1]), "
-                      "'median_ms': 9.1 if os.getcwd().endswith('b') else 9.5}))\n")
-    monkeypatch.setattr(ab_smoke, "HERE", str(tmp_path / "b"))
-    monkeypatch.setattr(ab_smoke, "FRAMES_SCRIPT", str(script))
-    assert ab_smoke.main([str(tmp_path / "a"), "--frames", "7"]) == 0
-    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
-    assert [r["tree"] for r in lines[:8]] == list("ABBAABBA")
-    for r in lines[:8]:
-        assert r["rc"] == 0 and r["frames"] == 7
-        assert r["median_ms"] == (9.5 if r["tree"] == "A" else 9.1)
-        assert r["root"] == str(tmp_path / ("a" if r["tree"] == "A" else "b"))
-    assert lines[8] == {"ab": "done", "failed": []}
-
-
-@pytest.mark.parametrize("mode", ["alone", "turns"])
-def test_steps_mode_runs_the_step_script_in_turns(tmp_path, capsys, monkeypatch, mode):
-    """``--steps N --mode M``: this checkout's step script in each tree,
-    A, B, B, A twice; ``--b`` puts another tree in B's place (two older
-    trees against each other)."""
-    _stand_in(tmp_path / "a", 3.338, 0)
-    _stand_in(tmp_path / "b", 2.288, 0)
-    _stand_in(tmp_path / "here", 2.288, 0)
-    script = tmp_path / "steps.py"
-    script.write_text("import json, os, sys\n"
-                      "print(json.dumps({'steps': int(sys.argv[1]), 'mode': sys.argv[2], "
-                      "'median_ms': 41.0 if os.getcwd().endswith('b') else 42.0}))\n")
+    _stand_in(tmp_path / "here", 9.999, 0)
     monkeypatch.setattr(ab_smoke, "HERE", str(tmp_path / "here"))
-    monkeypatch.setattr(ab_smoke, "STEPS_SCRIPT", str(script))
-    assert ab_smoke.main([str(tmp_path / "a"), "--b", str(tmp_path / "b"), "--steps", "5",
-                          "--mode", mode]) == 0
+    assert ab_smoke.main([str(tmp_path / "a"), "--b", str(tmp_path / "b"), "--logs",
+                          str(tmp_path / "logs")]) == 0
     lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
-    assert [r["tree"] for r in lines[:8]] == list("ABBAABBA")
-    for r in lines[:8]:
-        assert r["rc"] == 0 and r["steps"] == 5 and r["mode"] == mode
-        assert r["median_ms"] == (42.0 if r["tree"] == "A" else 41.0)
+    assert [r["tree"] for r in lines[:4]] == list("ABBA")
+    for r in lines[:4]:
         assert r["root"] == str(tmp_path / ("a" if r["tree"] == "A" else "b"))
-    assert lines[8] == {"ab": "done", "failed": []}
+        assert r["composite_bwd_ms"] == (3.338 if r["tree"] == "A" else 2.288)
+    assert lines[4] == {"ab": "done", "failed": []}
 
 
 def test_refuses_a_tree_without_chip_smoke(tmp_path):

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from gsjax_torch.ops import cuda_composite as cc
+from gsjax_torch.utils.profiling import launches
 from test_torch_cuda import (
     _bwd_inputs, _cuda, _inputs, _scene, assert_cull_loses_nothing, count_rule_fails,
     direct_counts,
@@ -78,13 +79,13 @@ def test_counts_of_an_empty_frame():
 
 def test_counts_wrapper_on_cpu_takes_the_plain_version():
     bwd = _case("sparse")
-    before = cc.composite_bwd_counts.launches, cc.composite_bwd.launches
+    before = launches()
     want, n_live, _ = cc.composite_bwd_plain(*bwd, return_evals=True)
     for cull in (True, False):
         got, counts = cc.composite_bwd_counts(*bwd, cull=cull)
         assert torch.equal(got, want) and counts.dtype == torch.int32
         assert torch.equal(counts.long(), n_live)
-    assert (cc.composite_bwd_counts.launches, cc.composite_bwd.launches) == before
+    assert launches() == before
 
 
 # --------------------------------------------------------------------------

@@ -76,10 +76,10 @@ def assert_two_tier(got, want, name, tol=1e-4):
 def test_kernel_matches_plain_version(dense, size):
     dev = _cuda()
     args = _inputs(_scene(300, 4, dense), *size, dev)
-    before = cc.composite_infer.launches
+    before = _launches("composite_infer")
     kc, kT = cc.composite_infer(*args)
     torch.cuda.synchronize()
-    assert cc.composite_infer.launches == before + 1
+    assert _launches("composite_infer") == before + 1
     pc, pT = cc.composite_infer_plain(*args)
     assert_two_tier(kc, pc, "tile_colors")
     assert_two_tier(kT, pT, "tile_T")
@@ -263,10 +263,10 @@ def count_rule_fails(got, want):
 def test_fwd_kernel_matches_plain_version_and_infer(dense, size):
     dev = _cuda()
     args = _inputs(_scene(300, 4, dense), *size, dev)
-    before = cc.composite_fwd.launches
+    before = _launches("composite_fwd")
     kc, kT, kn = cc.composite_fwd(*args)
     torch.cuda.synchronize()
-    assert cc.composite_fwd.launches == before + 1
+    assert _launches("composite_fwd") == before + 1
     pc, pT, pn = cc.composite_fwd_plain(*args)
     assert_two_tier(kc, pc, "tile_colors")
     assert_two_tier(kT, pT, "tile_T")
@@ -280,14 +280,13 @@ def assert_fwd_cull_loses_nothing(args):
     walk of every pair without the per-warp cull: colors, T and n_contrib
     bit for bit, for composite_fwd and composite_infer (colors and T);
     each launch counted by its own wrapper."""
-    launches = lambda: (cc.composite_infer.launches, cc.composite_fwd.launches,  # noqa: E731
-                        cc.composite_fwd_check.launches)
-    before = launches()
+    names = ("composite_infer", "composite_fwd", "composite_fwd_check")
+    before = _launches(*names)
     want = cc.composite_fwd_check(*args)
     got = cc.composite_fwd(*args)
     ic, iT = cc.composite_infer(*args)
     torch.cuda.synchronize()
-    assert launches() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert _launches(*names) == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert int(want[2].max()) > 0
     for w, g in zip(want, got):
         assert torch.equal(w, g)
@@ -317,10 +316,10 @@ def test_bwd_kernel_matches_plain_version(dense):
     dev = _cuda()
     args = _inputs(_scene(300, 4, dense), 70, 45, dev)
     bwd = _bwd_inputs(args)
-    before = cc.composite_bwd.launches
+    before = _launches("composite_bwd")
     kg = cc.composite_bwd(*bwd)
     torch.cuda.synchronize()
-    assert cc.composite_bwd.launches == before + 1
+    assert _launches("composite_bwd") == before + 1
     pg = cc.composite_bwd_plain(*bwd)
     assert float(pg.abs().max()) > 0
     for i, name in enumerate(("mean_x", "mean_y", "conic_a", "conic_b", "conic_c",
@@ -338,11 +337,11 @@ def assert_cull_loses_nothing(bwd):
     and without it, the same counts on every pixel and the same table bit
     for bit, both :func:`cc.composite_bwd`'s; the counts within the
     exact-count rule of the plain version's. Returns the counts."""
-    before = cc.composite_bwd.launches, cc.composite_bwd_counts.launches
+    before = _launches("composite_bwd", "composite_bwd_counts")
     kg, counts = cc.composite_bwd_counts(*bwd)
     ng, n_counts = cc.composite_bwd_counts(*bwd, cull=False)
     torch.cuda.synchronize()
-    assert (cc.composite_bwd.launches, cc.composite_bwd_counts.launches) == (
+    assert _launches("composite_bwd", "composite_bwd_counts") == (
         before[0], before[1] + 2)
     assert counts.dtype == torch.int32 and counts.shape == bwd[6].shape
     assert torch.equal(counts, n_counts)
@@ -396,10 +395,10 @@ def test_bwd_bf16_kernel_packs_its_float32_table(reduce, half_up, dense):
     args = _inputs(_scene(300, 4, dense), 70, 45, dev)
     bwd = _bwd_inputs(args)
     kf = cc.composite_bwd(*bwd)
-    before = cc.composite_bwd.launches, cc.composite_bwd.launches_bf16
+    before = _launches("composite_bwd", "composite_bwd_bf16")
     kb = cc.composite_bwd(*bwd, grad_dtype="bfloat16", grad_reduce=reduce)
     torch.cuda.synchronize()
-    assert (cc.composite_bwd.launches, cc.composite_bwd.launches_bf16) == (
+    assert _launches("composite_bwd", "composite_bwd_bf16") == (
         before[0] + 1, before[1] + 1)
     assert kb.dtype == torch.int32 and kb.shape == (bwd[1].shape[0], 5)
     assert torch.equal(kb, cc.pack_bf16_pairs(kf, half_up=half_up))
@@ -450,8 +449,8 @@ def _autograd_path_launches(grad_dtype, grad_reduce):
     dev = _cuda()
     gs = _scene(300, 7)
     s = RasterizeSettings(max_pairs=1 << 15)
-    counts = lambda: (cc.composite_infer.launches, cc.composite_fwd.launches,  # noqa: E731
-                      cc.composite_bwd.launches, cc.composite_bwd.launches_bf16)
+    counts = lambda: _launches("composite_infer", "composite_fwd",  # noqa: E731
+                               "composite_bwd", "composite_bwd_bf16")
     bf16 = int(grad_dtype == "bfloat16")
     grads = {}
     for device in (dev, torch.device("cpu")):
@@ -510,10 +509,10 @@ def _check_sol_probe(k, coefs, warps):
     ts = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
                       device=dev)
     table = cp.sol_probe_inputs(ts, seed=3)
-    before = cp.sol_probe.launches
+    before = _launches("sol_probe")
     got = cp.sol_probe(ts, table, *k, coefs, warps_per_sm=warps)
     torch.cuda.synchronize()
-    assert cp.sol_probe.launches == before + 1
+    assert _launches("sol_probe") == before + 1
     want = cp.sol_probe_plain(ts, table, *k, coefs)
     assert float(want[0].abs().max()) == 0.0 and float(want[2].abs().min()) > 0.0
     torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
@@ -767,6 +766,16 @@ def _registry_count(group, name):
     return sum(g["count"] if isinstance(g, dict) else g for g in got)
 
 
+def _launches(*names):
+    """The registry's launch counts of the kernels ``names`` (of one name,
+    its count)."""
+    from gsjax_torch.utils.profiling import launches
+
+    counts = launches()
+    got = tuple(counts.get(n, 0) for n in names)
+    return got[0] if len(names) == 1 else got
+
+
 def _replays():
     return (_registry_count("spans", "graph.first_replay")
             + _registry_count("spans", "graph.replay"))
@@ -835,21 +844,19 @@ def test_scan_backend_steps_run_eager():
 
 @pytest.mark.cuda
 def test_graph_replays_count_their_launches():
-    """A capture launches nothing and takes back the counts its Python
-    added; each replay adds them again: the counters stay the kernels that
-    ran."""
+    """A capture launches nothing and counts nothing; each replay counts
+    the launches it recorded: the counts stay the kernels that ran."""
     from gsjax_torch.train.step import make_train_step
 
     dev = _cuda()
     state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
     step = make_train_step(tx, cams, images, cfg)
-    before = (cc.composite_fwd.launches, cc.composite_bwd.launches,
-              cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
+    names = ("composite_fwd", "composite_bwd", "composite_bwd_bf16", "composite_infer")
+    before = _launches(*names)
     replays = _replays()
     for i in range(4):
         state, opt, _ = step(state, opt, i % 3)
-    got = (cc.composite_fwd.launches, cc.composite_bwd.launches,
-           cc.composite_bwd.launches_bf16, cc.composite_infer.launches)
+    got = _launches(*names)
     assert tuple(g - b for g, b in zip(got, before)) == (4, 4, 4, 0)
     # the first call was the warm-up
     assert _replays() - replays == 3
@@ -886,13 +893,13 @@ def test_graphed_frame_equals_eager():
     state = toy_state(3000, 4096, device=dev)
     cfg = TrainConfig(settings=RasterizeSettings(max_pairs=1 << 16, expansion="compact"))
     fns = [make_render_fn(cfg, with_stats=True, eager=e) for e in (False, True)]
-    before = cc.composite_infer.launches
+    before = _launches("composite_infer")
     for yaw in (0.0, 0.01, -0.01, 0.0):
         rc = bench_camera(176, 104, yaw).to_render_camera(dev)
         bg = torch.tensor([0.1, 0.2, yaw], device=dev)
         (gi, gd), (ei, ed) = (fn(state, rc, bg) for fn in fns)
         assert torch.equal(gi, ei) and torch.equal(gd, ed)
-    assert cc.composite_infer.launches - before == 8
+    assert _launches("composite_infer") - before == 8
     # new parameter tensors (render_bench perturbs xyz every frame) replay
     # the same graph on its own copy of the model
     import dataclasses
@@ -1028,13 +1035,12 @@ def test_preprocess_kernel_matches_plain_version(case):
 
     dev = _cuda()
     args, cam, deg, kw = _prep_inputs(case, dev)
-    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    before = _launches("preprocess_infer")
     with torch.no_grad():
         kern = projection.preprocess(*args, cam, deg, **kw)
     plain = projection.preprocess_plain(*args, cam, deg, **kw)
     torch.cuda.synchronize()
-    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1)
+    assert _launches("preprocess_infer") - before == 1
     # K = 16, the port's SH rows: the kernel sums in the plain version's
     # order, so every field of a used slot is the plain version's bit for bit
     assert_preprocess_agrees(kern, plain, exact=PREP_CASES[case][1] == 16)
@@ -1058,7 +1064,7 @@ def test_preprocess_under_autograd_runs_the_plain_version(case):
     dev = _cuda()
     args, cam, deg, kw = _prep_inputs(case, dev, n=4000)
     kw["means2d_offset"] = torch.zeros((4000, 2), device=dev, requires_grad=True)
-    before = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    before = _launches("preprocess_infer", "preprocess_bwd")
     sp = projection.preprocess(*args, cam, deg, **kw)
     plain = projection.preprocess_plain(*args, cam, deg, **kw)
     assert all(torch.equal(a, b) for a, b in zip(sp, plain))
@@ -1066,7 +1072,7 @@ def test_preprocess_under_autograd_runs_the_plain_version(case):
     sp.means2d.sum().backward()
     assert kw["means2d_offset"].grad is not None
     torch.cuda.synchronize()
-    assert (projection.preprocess_infer.launches, projection.preprocess_bwd.launches) == before
+    assert _launches("preprocess_infer", "preprocess_bwd") == before
 
 
 # --------------------------------------------------------------------------
@@ -1186,20 +1192,17 @@ def test_preprocess_bwd_kernel_matches_autograd_on_the_bench_scene(deg, bench_bw
     """At 2^20 slots of the bench scene: the kernel against autograd over
     ``preprocess_plain`` and against ``preprocess_vjp_plain`` at
     :data:`BWD_TOL`; a slot with no incoming gradient gets exact zeros; one
-    launch, one host call counted."""
+    launch counted."""
     from gsjax_torch.ops import projection
 
     ins, active, cam = bench_bwd
     with torch.no_grad():
         sp = projection.preprocess_plain(*ins, cam, deg, active_mask=active)
     grads = used_slot_grads(sp, deg)
-    before = (projection.preprocess_bwd.launches,
-              _registry_count("counters", "preprocess.bwd_kernel"))
+    before = _launches("preprocess_bwd")
     kern = projection.preprocess_bwd(*ins, cam, deg, grads)
     torch.cuda.synchronize()
-    after = (projection.preprocess_bwd.launches,
-             _registry_count("counters", "preprocess.bwd_kernel"))
-    assert tuple(a - b for a, b in zip(after, before)) == (1, 1)
+    assert _launches("preprocess_bwd") - before == 1
     assert_grads_close(kern, autograd_prep_grads(ins, cam, deg, grads), *BWD_TOL)
     assert_grads_close(kern, projection.preprocess_vjp_plain(*ins, cam, deg, grads), *BWD_TOL)
     unused = sp.radii == 0
@@ -1250,7 +1253,7 @@ def test_preprocess_train_takes_the_kernel_under_autograd():
     leaves = [a.clone().requires_grad_(True) for a in args]
     off = kw["means2d_offset"].clone().requires_grad_(True)
     kw["means2d_offset"] = off
-    before = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    before = _launches("preprocess_infer", "preprocess_bwd")
     sp = projection.preprocess(*leaves, cam, deg, **kw)
     assert "PreprocessTrain" in type(sp.means2d.grad_fn).__name__
     with torch.no_grad():
@@ -1264,7 +1267,7 @@ def test_preprocess_train_takes_the_kernel_under_autograd():
     want = projection.preprocess_bwd(*args, cam, deg, grads)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     torch.cuda.synchronize()
-    after = (projection.preprocess_infer.launches, projection.preprocess_bwd.launches)
+    after = _launches("preprocess_infer", "preprocess_bwd")
     assert (after[0] - before[0], after[1] - before[1]) == (0, 2)
 
 
@@ -1273,7 +1276,6 @@ def test_graphed_chained_dispatch_equals_eager_and_launches_the_bwd_kernel_once_
     """A graphed 25-step chained dispatch (its capture, then a replay)
     against its eager run from the same state, bit for bit; each runs
     ``preprocess_bwd`` once a step (a replay adds its 25 launches)."""
-    from gsjax_torch.ops import projection
     from gsjax_torch.train.step import make_train_step_chained
     from gsjax_torch.train.step import snapshot_differences as _differing
 
@@ -1285,10 +1287,10 @@ def test_graphed_chained_dispatch_equals_eager_and_launches_the_bwd_kernel_once_
 
     def counted(fn):
         def run(state, opt, *a):
-            before = projection.preprocess_bwd.launches
+            before = _launches("preprocess_bwd")
             out = fn(state, opt, *a)
             torch.cuda.synchronize()
-            counts.append(projection.preprocess_bwd.launches - before)
+            counts.append(_launches("preprocess_bwd") - before)
             return out
         return run
 
@@ -1345,8 +1347,8 @@ def test_graphed_frame_of_benchmark_scene_equals_plain_frame(scene, monkeypatch)
     """The view cells' scenes' frames through the graphed ``make_render_fn``
     (the kernel) against the same frames with ``render`` on the plain
     version: no channel more than one level apart (the view cells'
-    ``px_off`` 0), no pair dropped; the kernel launches once a frame, the
-    registry's counter counts the capture's two calls and no replay."""
+    ``px_off`` 0), no pair dropped; the kernel launches once a frame: at the
+    capture's eager warm-up and at each replay, not at the capture."""
     from gsjax_torch.ops import projection, rasterize
     from gsjax_torch.train.step import TrainConfig, make_render_fn
 
@@ -1356,11 +1358,10 @@ def test_graphed_frame_of_benchmark_scene_equals_plain_frame(scene, monkeypatch)
     bg = torch.zeros(3, device=dev)
     poses = range(len(rcams))
     fn = make_render_fn(cfg, with_stats=True, as_uint8=True)
-    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    before = _launches("preprocess_infer")
     frames = [fn(state, rcams[k], bg) for k in poses]
     torch.cuda.synchronize()
-    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
-    assert tuple(a - b for a, b in zip(after, before)) == (len(poses), 2)
+    assert _launches("preprocess_infer") - before == len(poses)
     assert fn.graphs.captures == 1
     monkeypatch.setattr(rasterize, "preprocess", projection.preprocess_plain)
     plain_fn = make_render_fn(cfg, with_stats=True, as_uint8=True, eager=True)
@@ -1375,16 +1376,15 @@ def test_graphed_frame_of_benchmark_scene_equals_plain_frame(scene, monkeypatch)
 @pytest.mark.cuda
 def test_training_dispatch_launches_no_preprocess_kernel():
     """A chained training dispatch (its capture and a replay) keeps
-    preprocess on the plain version: the kernel's counters stay."""
-    from gsjax_torch.ops import projection
+    preprocess on the plain version: the kernel's count stays."""
     from gsjax_torch.train.step import make_train_step_chained
 
     dev = _cuda()
     state, opt, tx, cams, images, cfg = _graph_fixture(dev, "bfloat16")
     chained = make_train_step_chained(tx, cams, images, cfg, 3)
-    before = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    before = _launches("preprocess_infer")
     for _ in range(2):
         state, opt, m = chained(state, opt, [0, 2, 1])
     torch.cuda.synchronize()
-    after = (projection.preprocess_infer.launches, _registry_count("counters", "preprocess.kernel"))
+    after = _launches("preprocess_infer")
     assert np.isfinite(float(m["loss_mean"])) and after == before

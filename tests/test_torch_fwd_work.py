@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from gsjax_torch.ops import cuda_composite as cc
-from gsjax_torch.utils.profiling import fwd_work
+from gsjax_torch.utils.profiling import fwd_work, launches
 from test_torch_bwd_counts import sweep_frame
 from test_torch_cuda import _inputs, _scene, footprint_box_np
 
@@ -145,9 +145,7 @@ def test_three_sigma_cull_changes_the_outputs(name):
 def test_check_wrapper_on_cpu_takes_the_plain_version():
     args = _frame("sparse")
     want = cc.composite_fwd_plain(*args)
-    before = (cc.composite_fwd_check.launches, cc.composite_fwd.launches,
-              cc.composite_infer.launches)
+    before = launches()
     for w, g in zip(want, cc.composite_fwd_check(*args)):
         assert torch.equal(w, g)
-    assert (cc.composite_fwd_check.launches, cc.composite_fwd.launches,
-            cc.composite_infer.launches) == before
+    assert launches() == before

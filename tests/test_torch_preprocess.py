@@ -1,7 +1,7 @@
 """``preprocess``'s dispatch where no card is: every CPU call, with or
-without autograd, is the plain version bit for bit and leaves the
-kernel's counters as they were; and the kernel's C entries agree with the
-ctypes signatures that load them. The kernel against the plain version
+without autograd, is the plain version bit for bit and launches nothing;
+a graph's replay counts the kernel's launch; and the kernels' C entries
+agree with the ctypes signatures that load them. The kernel against the plain version
 on the card: ``tests/test_torch_cuda.py``.
 
 Imports neither JAX nor gsjax:
@@ -16,21 +16,15 @@ import re
 import pytest
 import torch
 
-from gsjax_torch.ops import cuda_composite as cc
-from gsjax_torch.ops import projection
-from gsjax_torch.utils import graphs, profiling
+from gsjax_torch.ops import kernels, projection
+from gsjax_torch.utils import profiling
 
 from test_torch_cuda import PREP_CASES, _prep_inputs
+from test_torch_kernels import assert_replays_count, fake_card  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU_CASES = ("deg3", "deg1_k5", "scale_modifier", "cov3d", "colors", "offset", "no_mask",
              "sigma3_radius")
-
-
-def _counters():
-    rec = profiling.records()
-    return (projection.preprocess_infer.launches,
-            sum(rec[k]["counters"].get("preprocess.kernel", 0) for k in ("untraced", "traced")))
 
 
 def _bits(x):
@@ -45,11 +39,11 @@ def test_preprocess_on_cpu_is_the_plain_version(case, grad):
     if grad:
         for t in args[:4]:
             t.requires_grad_(True)
-    before = _counters()
+    before = profiling.launches()
     with torch.set_grad_enabled(grad):
         got = projection.preprocess(*args, cam, deg, **kw)
         want = projection.preprocess_plain(*args, cam, deg, **kw)
-    assert _counters() == before
+    assert profiling.launches() == before
     for f, a, b in zip(want._fields, got, want):
         assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b)), f
     assert got.means2d.requires_grad == grad
@@ -60,22 +54,24 @@ def test_preprocess_on_cpu_is_the_plain_version(case, grad):
 
 def test_preprocess_infer_refuses_cpu_tensors():
     args, cam, deg, kw = _prep_inputs("deg3", "cpu", n=64)
-    before = _counters()
+    before = profiling.launches()
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         projection.preprocess_infer(*args, cam, deg, **kw)
-    assert _counters() == before
+    assert profiling.launches() == before
 
 
-def test_graph_replays_count_preprocess_launches():
-    """``utils.graphs`` adds a graph's preprocess launches at each replay,
-    as it does the compositing kernels'."""
-    assert (projection.preprocess_infer, "launches") in graphs._COUNTERS
+def test_graph_replays_count_preprocess_launches(fake_card):
+    """A graphed frame's preprocess launch counts at its warm-up and at each
+    replay, not at the capture."""
+    assert_replays_count("preprocess_infer", open_call=True)
+    assert "gsjax_preprocess_infer" in kernels.SOURCES["preprocess_infer.cu"]
 
 
 def test_only_the_preprocess_kernel_is_built_without_contraction():
-    assert cc.SOURCE_FLAGS == {"preprocess_infer.cu": ("-fmad=false",)}
-    assert "preprocess_infer.cu" in cc.SOURCES
-    assert "-fmad=false" not in cc.NVCC_FLAGS and "--use_fast_math" not in cc.NVCC_FLAGS
+    assert kernels.SOURCE_FLAGS == {"preprocess_infer.cu": ("-fmad=false",)}
+    assert "preprocess_infer.cu" in kernels.SOURCES
+    assert ("-fmad=false" not in kernels.NVCC_FLAGS
+            and "--use_fast_math" not in kernels.NVCC_FLAGS)
 
 
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float,
@@ -95,8 +91,9 @@ def _c_signature(source, name):
     return types
 
 
-@pytest.mark.parametrize("source,name", [(s, n) for s, fns in cc.SOURCES.items() for n in fns])
+@pytest.mark.parametrize("source,name",
+                         [(s, n) for s, fns in kernels.SOURCES.items() for n in fns])
 def test_ctypes_signatures_match_the_c_entries(source, name):
-    want = cc.SOURCES[source][name]
+    want = kernels.SOURCES[source][name]
     got = [_C_TYPES[t] for t in _c_signature(source, name)]
     assert got == want, (name, _c_signature(source, name))

@@ -14,12 +14,12 @@ import pytest
 import torch
 
 from gsjax_torch.data.cameras import CAMERA_TENSORS
-from gsjax_torch.ops import cuda_composite as cc
-from gsjax_torch.ops import projection
-from gsjax_torch.utils import graphs, profiling
+from gsjax_torch.ops import kernels, projection
+from gsjax_torch.utils import profiling
 
 from test_torch_cuda import GRAD_GROUPS as GROUPS
 from test_torch_cuda import PREP_CASES, _prep_inputs, assert_grads_close
+from test_torch_kernels import assert_replays_count, fake_card  # noqa: F401
 from test_torch_preprocess import _c_signature, _C_TYPES
 
 VJP_CASES = ("deg3", "deg0", "deg1", "deg2", "deg3_k9", "deg2_k4", "deg0_k1", "deg1_k5",
@@ -211,12 +211,6 @@ def test_preprocess_path_rule():
         projection.preprocess_train(*args, cam, deg, **kw)
 
 
-def _bwd_counters():
-    rec = profiling.records()
-    return (projection.preprocess_bwd.launches,
-            sum(rec[k]["counters"].get("preprocess.bwd_kernel", 0) for k in ("untraced", "traced")))
-
-
 @pytest.mark.parametrize("case", ["deg3", "cov3d", "colors"])
 def test_cpu_tensors_under_autograd_run_the_plain_version(case):
     """CPU tensors, the toggles' cases among them, run the plain version
@@ -224,28 +218,30 @@ def test_cpu_tensors_under_autograd_run_the_plain_version(case):
     args, cam, deg, kw = _prep_inputs(case, "cpu", n=500)
     for t in args[:4]:
         t.requires_grad_(True)
-    before = _bwd_counters()
+    before = profiling.launches()
     sp = projection.preprocess(*args, cam, deg, **kw)
     assert "PreprocessTrain" not in type(sp.means2d.grad_fn).__name__
     (sp.means2d.sum() + sp.colors.sum()).backward()
-    assert _bwd_counters() == before and args[0].grad is not None
+    assert profiling.launches() == before and args[0].grad is not None
 
 
 def test_preprocess_bwd_refuses_cpu_tensors():
     args, cam, deg, kw, grads = _case("deg3", n=64)
-    before = _bwd_counters()
+    before = profiling.launches()
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         projection.preprocess_bwd(*args, cam, deg, grads)
-    assert _bwd_counters() == before
+    assert profiling.launches() == before
 
 
-def test_graph_replays_count_preprocess_bwd_launches():
-    assert (projection.preprocess_bwd, "launches") in graphs._COUNTERS
+def test_graph_replays_count_preprocess_bwd_launches(fake_card):
+    """A graphed step's preprocess backward launch counts at its warm-up and
+    at each replay, not at the capture."""
+    assert_replays_count("preprocess_bwd", open_call=True)
 
 
 def test_preprocess_bwd_ctypes_signature_matches_its_c_entry():
-    assert "-fmad=false" not in cc.SOURCE_FLAGS.get("preprocess_bwd.cu", ())
-    want = cc.SOURCES["preprocess_bwd.cu"]["gsjax_preprocess_bwd"]
+    assert "-fmad=false" not in kernels.SOURCE_FLAGS.get("preprocess_bwd.cu", ())
+    want = kernels.SOURCES["preprocess_bwd.cu"]["gsjax_preprocess_bwd"]
     got = [_C_TYPES[t] for t in _c_signature("preprocess_bwd.cu", "gsjax_preprocess_bwd")]
     assert got == want
 

@@ -176,8 +176,7 @@ def test_trace_on_the_cpu(tmp_path):
     assert prof.device_summary(p) is None
 
 
-@pytest.mark.parametrize("module", ["gsjax_torch.bench", "gsjax_torch.probes",
-                                    "gsjax_torch.frame_times", "gsjax_torch.step_times"])
+@pytest.mark.parametrize("module", ["gsjax_torch.bench", "gsjax_torch.probes"])
 def test_measurement_entry_points_refuse_without_cuda(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")

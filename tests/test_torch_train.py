@@ -21,6 +21,7 @@ from gsjax_torch.configs import OptimizationParams as TOpt
 from gsjax_torch.data.cameras import Camera as TCamera
 from gsjax_torch.ops import RasterizeSettings as TSettings
 from gsjax_torch.utils import prng
+from gsjax_torch.utils.profiling import launches
 from test_torch_render import BACKENDS, _carry, _gsjax_state, one_torch_thread  # noqa: F401
 from test_torch_train_composite import _norm_close
 
@@ -246,7 +247,6 @@ def test_train_step_matches_gsjax(t_backend):
     from gsjax.train.step import TrainConfig as JCfg
     from gsjax.train.step import make_train_step as j_make_step
     from gsjax_torch.data.cameras import stack_render_cameras as t_stack
-    from gsjax_torch.ops import cuda_composite as t_cc
     from gsjax_torch.train.optim import adam_moments as t_moments
     from gsjax_torch.train.optim import make_optimizer as t_make_opt
     from gsjax_torch.train.step import TrainConfig as TCfg
@@ -263,7 +263,7 @@ def test_train_step_matches_gsjax(t_backend):
     tstep = t_make_step(ttx, t_stack(tcams, "cpu"), images, TCfg(
         settings=TSettings(backend=t_backend, **STEP_KW), extent=3.0))
     key = jax.random.PRNGKey(0)
-    launches = t_cc.composite_fwd.launches, t_cc.composite_bwd.launches
+    launched = launches()
     losses = []
     for i in range(5):
         jstate, jopt, jm = jstep(jstate, jopt, i % 2, key)
@@ -283,7 +283,7 @@ def test_train_step_matches_gsjax(t_backend):
         np.testing.assert_array_equal(tstate.denom.numpy(), np.asarray(jstate.denom))
         _norm_close(tstate.xyz_grad_accum.numpy(), jstate.xyz_grad_accum, "grad accum", 2e-3)
     assert topt.count == 5 and losses[-1] < losses[0]
-    assert (t_cc.composite_fwd.launches, t_cc.composite_bwd.launches) == launches  # CPU
+    assert launches() == launched  # CPU tensors: the plain versions
     tmu, _ = t_moments(topt)
     jmu, _ = j_moments(jopt)
     for k in tmu:

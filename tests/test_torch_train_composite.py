@@ -41,6 +41,7 @@ from gsjax_torch.ops import RasterizeSettings as TSettings
 from gsjax_torch.ops import cuda_composite as t_cc
 from gsjax_torch.ops import render as t_render
 from gsjax_torch.ops.composite import composite_tiles
+from gsjax_torch.utils.profiling import launches
 from test_torch_render import (  # noqa: F401
     GOLDENS, _golden, assert_two_tier, one_torch_thread, t_camera,
 )
@@ -94,9 +95,9 @@ def test_composite_fwd_plain_matches_pallas_forward(dense):
     jc, jT, jn = composite_tiles_pallas(pair_attrs, jb.tile_start, tx, ty)
 
     tile_start, pair_gauss, attrs = _port_inputs(js, jb)
-    before = t_cc.composite_fwd.launches
+    before = launches()
     tc, tT, tn = t_cc.composite_fwd(tile_start, pair_gauss, attrs, tx, ty)
-    assert t_cc.composite_fwd.launches == before  # CPU tensors: the plain version
+    assert launches() == before  # CPU tensors: the plain version
     assert tn.dtype == torch.int32 and tn.shape == (tx * ty, 256)
     assert_two_tier(tc.numpy(), jc, "tile_colors")
     assert_two_tier(tT.numpy(), jT, "tile_T")
@@ -181,9 +182,9 @@ def test_composite_grads_match_pallas_grads(case):
     if case.startswith("overflow"):
         assert int(jb.num_dropped) > 0
     want = _pallas_grads(case, js, jb, port, grad_dtype, reduce)
-    before = t_cc.composite_bwd.launches
+    before = launches()
     got = t_cc.composite_grads(*port, grad_dtype=grad_dtype, grad_reduce=reduce)
-    assert t_cc.composite_bwd.launches == before
+    assert launches() == before
     for name, g, w in zip(GRAD_FIELDS, got, want):
         assert tuple(g.shape) == tuple(w.shape), name
         assert float(np.abs(np.asarray(w)).max()) > 0, name
